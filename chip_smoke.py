@@ -1,27 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (precond_tpu_torch) on one CUDA card.
 
-Drives the general-mesh main path — allocate -> prepare -> PCG with the
-multilevel additive Schwarz preconditioner — through the port's entry
-points, builds every hand-written kernel from ``precond_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version at the main path's
-shapes, and checks what comes out against references. It prints, in order:
+Drives two main paths of the multilevel additive Schwarz preconditioner
+through the port's entry points — the general-mesh path (allocate ->
+prepare -> PCG) and the structured cloth-grid path (assemble_system_grid /
+assemble_system_stencil -> prepare_grid -> comp-major PCG) — builds every
+hand-written kernel from ``precond_tpu_torch/csrc``, holds each kernel
+against its plain PyTorch version at the main paths' shapes, and checks
+what comes out against references. It prints, in order:
 
   * the card, versions and kernel build time;
-  * general 1024 (the packed-symv path): iterations, residuals, prepare ms,
-    ms per iteration, peak device memory, launch counts, bitwise repeats;
-  * general 256 (the dense-symv path): the same;
-  * small-input references: a dense solve on a one-bank mesh, and the card
-    against the CPU (plain versions) on a 32x32 cloth;
+  * general 1024 (the packed-symv path) and general 256 (the dense-symv
+    path): iterations, residuals, prepare ms, ms per iteration, peak device
+    memory, launch counts, bitwise repeats, a profile;
+  * cloth 1024 (comp-major + packed symv, the JAX bench's headline) and
+    cloth 256 (comp-major + dense symv): the same, each against
+    block-Jacobi on the same carries and SpMV;
+  * grid_solve_step at 256 (row-major + dense);
+  * small-input references: a dense solve on a one-bank mesh, the card
+    against the CPU (plain versions) on 32x32 cloths for both paths, and
+    the analytic-hierarchy prepare against prepare_grid;
   * per kernel: error against its plain version with the tolerance, and
     kernel / plain / library times (CUDA events) beside the bound;
   * one JSON line of kernel records, the nvidia-smi name/power line, and a
     last JSON line {"ok": true, "device": {...}}.
 
-Any failed check exits nonzero without the last line. Needs a CUDA card and
-the repository checkout around this file.
+Each path runs once with the launch counts set to 0 just before it and
+read just after. Any failed check exits nonzero without the last line.
+Needs a CUDA card and the repository checkout around this file.
 
-    python3 chip_smoke.py [--grid 1024] [--dense-grid 256]
+    python3 chip_smoke.py [--grid 1024] [--dense-grid 256] [--cloth 1024] [--cloth-dense 256]
 """
 
 from __future__ import annotations
@@ -45,6 +53,11 @@ DEVICE = "cuda"
 # configurations (BASELINE.md:55 and BENCH_r05.json); iteration counts do not
 # depend on the chip up to rounding.
 JAX_RECORD_ITERS = {1024: (120, 544), 256: (112, 544)}
+# the same for the cloth grid path (BASELINE.md:56-57), comp-major
+JAX_RECORD_ITERS_CLOTH = {1024: (96, 544), 256: (88, 544)}
+# accepted bands around the record: the JAX bench tests convergence every 8
+# iterations, the port every iteration
+CLOTH_BAND = (8, 16)
 
 
 class SmokeFailure(RuntimeError):
@@ -95,17 +108,15 @@ def nvidia_smi_line() -> str:
 # main path
 # ---------------------------------------------------------------------------
 
-def states_equal(a, b) -> bool:
+def same_bits(a, b) -> bool:
+    """Bitwise equality of tensors, and of (named) tuples of them field by field."""
     import torch
-    from precond_tpu_torch.ops.cuda.packed_symv import PackedInverse
 
-    for x, y in zip(a, b):
-        if isinstance(x, PackedInverse):
-            if not (torch.equal(x.f, y.f) and torch.equal(x.dg, y.dg) and x.nb == y.nb):
-                return False
-        elif not torch.equal(x, y):
-            return False
-    return True
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, tuple):
+        return type(a) is type(b) and len(a) == len(b) and all(map(same_bits, a, b))
+    return a == b
 
 
 def profile_phase(label: str, fn, reps: int, top: int = 8) -> None:
@@ -229,7 +240,7 @@ def run_general(grid: int, expect_packed: bool, tol: float = 1e-4,
     pre2 = SchwarzPreconditioner(cfg, device=DEVICE)
     pre2.allocate(mesh.positions)
     pre2.prepare(ell)
-    same_state = states_equal(pre.state, pre2.state)
+    same_state = same_bits(pre.state, pre2.state)
     same_apply = torch.equal(pre.apply(b), pre2.apply(b)) and torch.equal(pre.apply(b), pre.apply(b))
     log(f"[general {grid}] bitwise repeat: prepare={same_state} apply={same_apply}")
     require(same_state and same_apply, f"general {grid}: prepare/apply not bit-reproducible")
@@ -249,6 +260,168 @@ def main_path_h96(run: dict):
     es = permute(ell, pre.maps.sorted_to_orig, pre.maps.orig_to_sorted)
     hier, mm = hi.build_hierarchy(es.idx, es.mask, pre.cfg_effective, None, with_merge_map=True)
     return assemble_banked_hessian(es, hier, pre.cfg_effective, None, merge_map=mm)
+
+
+def run_cloth(grid: int, expect_packed: bool, tol: float = 1e-4, profile: bool = False) -> dict:
+    """The structured cloth-grid main path at the JAX bench's `cloth` config
+    (bench.py:283-317, 518-597): make_grid(grid, grid, z_wave 0.02, mass
+    1e-3, dt 1/60), rhs from seed 0, tol 1e-4. assemble_system_grid +
+    assemble_system_stencil -> prepare_grid (auto: comp-major) -> PCG on
+    [3,N] carries with spmv_t (K4) and the comp-major apply between the cm
+    crossings (K2 via packed_symv_cm, or K3 via dense_symv_cm)."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops import gridstencil
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.ops.cuda.packed_symv import DenseInverseCM, PackedInverseCM
+    from precond_tpu_torch.ops.gridapply import precondition_grid_cm
+    from precond_tpu_torch.parallel.pcg import pcg
+    from precond_tpu_torch.solver import prepare_grid
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    label = f"cloth {grid}"
+    k = grid.bit_length() - 1
+    t0 = time.perf_counter()
+    mesh = cloth.make_grid(grid, grid, z_wave=0.02, mass=0.001, dt=1.0 / 60.0)
+    ssys = cloth.assemble_system_stencil(mesh, device=DEVICE)
+    dgr, drr, offsets = cloth.assemble_system_grid(mesh, device=DEVICE)
+    n = mesh.num_verts
+    b = torch.as_tensor(
+        np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32), device=DEVICE
+    )
+    bt = b.T.contiguous()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    cfg = SchwarzConfig()
+    log(f"[{label}] N={n} k={k} levels={cfg.num_levels(n)} blocks={cfg.num_blocks(n)} "
+        f"packed={cfg.use_packed_symv(n)} cm={cfg.use_cm(n)} D={len(offsets)} "
+        f"(systems built in {host_s:.2f} s)")
+
+    def pre_op_of(inv):
+        return lambda r: gm.morton_to_grid_cm(
+            precondition_grid_cm(inv, gm.grid_to_morton_cm(r, k), cfg), k)
+
+    def spmv(p):
+        return gridstencil.spmv_t(ssys, p)
+
+    # ---- the counted run: prepare_grid -> comp-major PCG
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    inv = prepare_grid(dgr, drr, offsets, k, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pre_op = pre_op_of(inv)
+    res = pcg(spmv, pre_op, bt, tol=tol, max_iters=2000)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = dict(_lib.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{label}] launches in the counted run: {counts}")
+
+    true_rel = float(torch.linalg.norm(bt - spmv(res.x)) / torch.linalg.norm(bt))
+    log(f"[{label}] schwarz: iters={res.iterations} rel_residual={float(res.rel_residual):.3e} "
+        f"true_rel_residual={true_rel:.3e} prepare_ms(first)={1e3 * (t1 - t0):.1f} "
+        f"solve_ms={1e3 * (t2 - t1):.1f} ms_per_iter={1e3 * (t2 - t1) / max(res.iterations, 1):.3f} "
+        f"peak_mem_gb={peak_gb:.2f} (held before the run: {held_gb:.2f})")
+    require(res.iterations < 2000 and float(res.rel_residual) <= tol,
+            f"{label}: Schwarz PCG did not converge")
+    require(torch.isfinite(res.x).all().item() and true_rel <= 10 * tol,
+            f"{label}: solution not finite or true residual {true_rel:.3e} too large")
+    want = PackedInverseCM if expect_packed else DenseInverseCM
+    require(isinstance(inv, want), f"{label}: expected a {want.__name__}, got {type(inv).__name__}")
+    symv_name = "packed_symv96" if expect_packed else "symv96"
+    require(counts["spd_inverse96"] >= 1, f"{label}: the inverse kernel never launched")
+    require(counts[symv_name] >= res.iterations,
+            f"{label}: {symv_name} launched {counts[symv_name]} times in {res.iterations} iterations")
+    require(counts["stencil_spmv"] >= res.iterations,
+            f"{label}: stencil_spmv launched {counts['stencil_spmv']} times "
+            f"in {res.iterations} iterations")
+
+    # ---- steady-state timings of the pieces (outside the counted run)
+    prepare_ms = time_ms(lambda: prepare_grid(dgr, drr, offsets, k, cfg), warmup=0, iters=2)
+    apply_ms = time_ms(lambda: pre_op(bt), warmup=2, iters=10)
+    spmv_ms = time_ms(lambda: spmv(bt), warmup=2, iters=10)
+    log(f"[{label}] steady: prepare_ms={prepare_ms:.1f} apply_ms={apply_ms:.3f} "
+        f"spmv_ms={spmv_ms:.3f}")
+    if profile:
+        profile_phase(f"{label} prepare", lambda: prepare_grid(dgr, drr, offsets, k, cfg), reps=1)
+        profile_phase(f"{label} 20 PCG iterations",
+                      lambda: pcg(spmv, pre_op, bt, tol=0.0, max_iters=20), reps=1)
+
+    # ---- block-Jacobi on the same carries and the same K4 SpMV
+    dinv_t = torch.linalg.inv(ssys.diag).permute(1, 2, 0).contiguous()   # [3,3,N]
+    t0 = time.perf_counter()
+    jac = pcg(spmv, lambda r: (dinv_t * r[None]).sum(dim=1), bt, tol=tol, max_iters=20000)
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t0
+    log(f"[{label}] jacobi: iters={jac.iterations} rel_residual={float(jac.rel_residual):.3e} "
+        f"solve_ms={1e3 * jac_s:.1f} ms_per_iter={1e3 * jac_s / max(jac.iterations, 1):.3f}")
+    require(jac.iterations < 20000 and float(jac.rel_residual) <= tol,
+            f"{label}: Jacobi PCG did not converge")
+    rec = JAX_RECORD_ITERS_CLOTH.get(grid)
+    if rec:
+        log(f"[{label}] iterations schwarz/jacobi: port {res.iterations}/{jac.iterations}, "
+            f"JAX package record {rec[0]}/{rec[1]} (its bench tests convergence every 8 "
+            f"iterations; bands +-{CLOTH_BAND[0]} / +-{CLOTH_BAND[1]})")
+        require(abs(res.iterations - rec[0]) <= CLOTH_BAND[0],
+                f"{label}: {res.iterations} Schwarz iterations, outside {rec[0]} +- {CLOTH_BAND[0]}")
+        require(abs(jac.iterations - rec[1]) <= CLOTH_BAND[1],
+                f"{label}: {jac.iterations} Jacobi iterations, outside {rec[1]} +- {CLOTH_BAND[1]}")
+
+    # ---- bitwise repeat: a fresh prepare and the apply must match exactly
+    inv2 = prepare_grid(dgr, drr, offsets, k, cfg)
+    same_state = same_bits(inv, inv2)
+    z = pre_op(bt)
+    same_apply = torch.equal(z, pre_op_of(inv2)(bt)) and torch.equal(z, pre_op(bt))
+    log(f"[{label}] bitwise repeat: prepare={same_state} apply={same_apply}")
+    require(same_state and same_apply, f"{label}: prepare/apply not bit-reproducible")
+    del inv2
+
+    return dict(grid=grid, n=n, k=k, cfg=cfg, inv=inv, ssys=ssys, dgr=dgr, drr=drr,
+                offsets=offsets, counts=counts, iters=res.iterations, jacobi_iters=jac.iterations)
+
+
+def run_grid_solve_step(grid: int, tol: float = 1e-4) -> dict:
+    """parallel.gridsharded.grid_solve_step on the cloth config: prepare_grid
+    pinned to dense + rows, grid-order PCG with K4 behind the row-major
+    spmv and K3 behind the row-major grid apply."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.parallel.gridsharded import grid_solve_step
+
+    label = f"grid_solve_step {grid}"
+    k = grid.bit_length() - 1
+    mesh = cloth.make_grid(grid, grid, z_wave=0.02, mass=0.001, dt=1.0 / 60.0)
+    ssys = cloth.assemble_system_stencil(mesh, device=DEVICE)
+    dgr, drr, offsets = cloth.assemble_system_grid(mesh, device=DEVICE)
+    b = torch.as_tensor(
+        np.random.default_rng(0).standard_normal((mesh.num_verts, 3)).astype(np.float32),
+        device=DEVICE)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = grid_solve_step(ssys, dgr, drr, b, offsets, k, SchwarzConfig(), tol=tol, max_iters=2000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_lib.launch_counts)
+    from precond_tpu_torch.ops import gridstencil
+
+    true_rel = float(torch.linalg.norm(b - gridstencil.spmv(ssys, res.x)) / torch.linalg.norm(b))
+    log(f"[{label}] iters={res.iterations} rel_residual={float(res.rel_residual):.3e} "
+        f"true_rel_residual={true_rel:.3e} wall_ms={1e3 * wall:.1f} launches={counts}")
+    require(float(res.rel_residual) <= tol and true_rel <= 10 * tol,
+            f"{label}: did not converge")
+    require(counts["spd_inverse96"] >= 1 and counts["symv96"] >= res.iterations
+            and counts["stencil_spmv"] >= res.iterations,
+            f"{label}: a kernel of the path was not launched every iteration")
+    return dict(counts=counts, iters=res.iterations)
 
 
 # ---------------------------------------------------------------------------
@@ -310,17 +483,79 @@ def check_references() -> None:
     require(abs(iters["cpu"] - iters[DEVICE]) <= 2, "solve_step iterations differ card vs CPU")
 
 
+def check_grid_references() -> None:
+    """The grid path on the card against the CPU plain versions (32x32, the
+    three apply forms), and the analytic-hierarchy general prepare against
+    prepare_grid on the card (64x64, tests/test_gridprep.py:92-125)."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.gridapply import precondition_grid, precondition_grid_cm
+    from precond_tpu_torch.solver import SortMaps, prepare_grid, prepare_with_system
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    mesh = cloth.make_grid(32, 32, z_wave=0.02)
+    rn = np.random.default_rng(4).standard_normal((mesh.num_verts, 3)).astype(np.float32)
+    forms = {
+        "cm packed": SchwarzConfig(symv_kernel="packed", packed_symv_block_b=128),
+        "cm dense": SchwarzConfig(),
+        "rows dense": SchwarzConfig(symv_kernel="dense", solve_layout="rows"),
+    }
+    for name, cfg in forms.items():
+        out = {}
+        for dev in ("cpu", DEVICE):
+            dg, dr, off = cloth.assemble_system_grid(mesh, device=dev)
+            inv = prepare_grid(dg, dr, off, 5, cfg)
+            r = torch.as_tensor(rn, device=dev)
+            if cfg.solve_layout == "rows":
+                z = gm.morton_to_grid(precondition_grid(inv, gm.grid_to_morton(r, 5), cfg), 5)
+            else:
+                z = gm.morton_to_grid_cm(
+                    precondition_grid_cm(inv, gm.grid_to_morton_cm(r.T.contiguous(), 5), cfg), 5).T
+            out[dev] = z.cpu()
+        scale = float(out["cpu"].abs().max())
+        err = float((out[DEVICE] - out["cpu"]).abs().max())
+        ok = bool(torch.allclose(out[DEVICE], out["cpu"], rtol=1e-5, atol=1e-6 * scale))
+        log(f"[reference] 32x32 grid {name}: card vs CPU plain max abs err {err:.2e} "
+            f"(rtol 1e-5, atol 1e-6*max|z| = {1e-6 * scale:.2e}) ok={ok}")
+        require(ok, f"32x32 grid {name} apply: card and CPU disagree")
+
+    g, k = 64, 6
+    mesh = cloth.make_grid(g, g, z_wave=0.02, mass=0.001, dt=1.0 / 60.0)
+    cfg = SchwarzConfig(symv_kernel="dense", solve_layout="rows")
+    s2o, o2s = gm.sort_maps(k)
+    maps = SortMaps(torch.as_tensor(s2o, device=DEVICE), torch.as_tensor(o2s, device=DEVICE))
+    state, _ = prepare_with_system(cloth.assemble_system(mesh, device=DEVICE), maps, cfg,
+                                   analytic_hier=True)
+    dg, dr, off = cloth.assemble_system_grid(mesh, device=DEVICE)
+    inv = prepare_grid(dg, dr, off, k, cfg)
+    err = float((state.inv96 - inv).abs().max())
+    ok = bool(torch.allclose(state.inv96, inv, rtol=2e-4, atol=1e-5))
+    log(f"[reference] 64x64 prepare_with_system(analytic_hier=True) vs prepare_grid: "
+        f"max abs err {err:.2e} (rtol 2e-4, atol 1e-5) ok={ok}")
+    require(ok, "the analytic-hierarchy prepare disagrees with prepare_grid")
+
+
 # ---------------------------------------------------------------------------
 # kernels against their plain versions, at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def kernel_spd_inverse(h96, launches: int) -> dict:
-    import numpy as np
+def _record(name, source, replaces, launches_by_path, path, max_abs, ms, plain_ms, bound,
+            library_ms, **extra) -> dict:
+    bms, by = bound
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches_by_path[path], max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms, shapes_of=path,
+                launches_by_path=launches_by_path, **extra)
+
+
+def check_spd_inverse_blocks(h96, label: str) -> float:
+    """K1 on a main path's assembled blocks, per block (returns max abs err)."""
     import torch
     from precond_tpu_torch.ops.batched_inverse import invert_spd_blocks_panel
     from precond_tpu_torch.ops.cuda.spd_inverse import spd_inverse
 
-    bsz = h96.shape[0]
     got = spd_inverse(h96, repair=False)
     plain = invert_spd_blocks_panel(h96, repair=False)
     truth = torch.linalg.inv(h96.double())
@@ -338,11 +573,22 @@ def kernel_spd_inverse(h96, launches: int) -> dict:
     err_kp = per_block(got, plain.double())
     err_k, err_p = per_block(got, truth), per_block(plain, truth)
     sym = torch.equal(got, got.transpose(1, 2))
-    log(f"[K1 spd_inverse] main-path h96 B={bsz}: kernel vs plain max abs {max_abs:.3e}, "
+    log(f"[K1 spd_inverse] {label} h96 B={h96.shape[0]}: kernel vs plain max abs {max_abs:.3e}, "
         f"per-block rel {err_kp:.2e}; per-block rel vs f64: kernel {err_k:.2e} plain {err_p:.2e} "
         f"(tol 1e-3 per block); bitwise symmetric={sym}")
     require(torch.isfinite(got).all().item() and sym and err_k < 1e-3 and err_kp < 1e-3,
-            "K1 disagrees on the main-path blocks")
+            f"K1 disagrees on the {label} blocks")
+    return max_abs
+
+
+def kernel_spd_inverse(h96, launches_by_path: dict, path: str) -> dict:
+    import numpy as np
+    import torch
+    from precond_tpu_torch.ops.batched_inverse import invert_spd_blocks_panel
+    from precond_tpu_torch.ops.cuda.spd_inverse import spd_inverse
+
+    bsz = h96.shape[0]
+    max_abs = check_spd_inverse_blocks(h96, path)
 
     rng = np.random.default_rng(0)
     q = torch.as_tensor(rng.standard_normal((4096, 96, 96)).astype(np.float32), device=DEVICE)
@@ -370,50 +616,76 @@ def kernel_spd_inverse(h96, launches: int) -> dict:
     lib_ms = time_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky(h96)), warmup=1, iters=2)
     # an SPD inverse does ~n^3 flop (Cholesky, triangular inverse and the
     # L^T L product, n^3/3 each), so the bytes bound it
-    bms, by = bound_ms(2 * bsz * 96 * 96 * 4, bsz * 96 ** 3)
-    log(f"[K1 spd_inverse] B={bsz}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"cholesky+cholesky_inverse {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
-    return dict(name="spd_inverse96", route="cuda", source="precond_tpu_torch/csrc/spd_inverse.cu",
-                replaces="precond_tpu/ops/pallas/chol_inverse.py:193", launches=launches,
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+    bound = bound_ms(2 * bsz * 96 * 96 * 4, bsz * 96 ** 3)
+    log(f"[K1 spd_inverse] {path} B={bsz}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"cholesky+cholesky_inverse {lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+    return _record("spd_inverse96", "precond_tpu_torch/csrc/spd_inverse.cu",
+                   "precond_tpu/ops/pallas/chol_inverse.py:193", launches_by_path, path,
+                   max_abs, ms, plain_ms, bound, lib_ms)
 
 
-def kernel_packed_symv(packed, launches: int) -> dict:
+def _packed_ok(got, plain, label: str) -> float:
+    scale = float(plain.abs().max())
+    max_abs = float((got - plain).abs().max())
+    ok = bool(((got - plain).abs() <= 2e-5 * plain.abs() + 2e-5 * scale).all())
+    log(f"[K2 packed_symv] {label}: max abs {max_abs:.3e} "
+        f"(tol 2e-5*|z| + 2e-5*max|z| = {2e-5 * scale:.3e}) ok={ok}")
+    require(ok, f"K2 disagrees: {label}")
+    return max_abs
+
+
+def check_packed_symv_table(packed, label: str) -> float:
+    """K2 (row-major entry) on a main path's packed table vs its plain version."""
     import numpy as np
     import torch
-    from precond_tpu_torch.ops.cuda.packed_symv import packed_symv_ref, packed_symv_t, unpack_sym96
+    from precond_tpu_torch.ops.cuda.packed_symv import packed_symv_ref, packed_symv_t
 
     bp = packed.f.shape[2]
     x = torch.as_tensor(np.random.default_rng(2).standard_normal((96, bp)).astype(np.float32),
                         device=DEVICE)
-    got = packed_symv_t(packed, x)
-    plain = packed_symv_ref(packed, x.T).T
-    scale = float(plain.abs().max())
-    max_abs = float((got - plain).abs().max())
-    ok = bool(((got - plain).abs() <= 2e-5 * plain.abs() + 2e-5 * scale).all())
-    log(f"[K2 packed_symv] main-path inverse Bp={bp}: kernel vs plain max abs {max_abs:.3e} "
-        f"(tol 2e-5*|z| + 2e-5*max|z| = {2e-5 * scale:.3e}) ok={ok}")
-    require(ok, "K2 disagrees with its plain version")
+    return _packed_ok(packed_symv_t(packed, x), packed_symv_ref(packed, x.T).T,
+                      f"{label} inverse Bp={bp}, kernel vs plain")
 
-    # the library yardstick reads the unpacked dense table
+
+def kernel_packed_symv_cm(run: dict, inv96, launches_by_path: dict, path: str) -> dict:
+    """K2 through packed_symv_cm at the comp-major table of `run`, against
+    packed_symv_ref on the same table (rhs laid out as packed_symv_cm lays
+    it out) and the dense row-major apply of the unpermuted inverse."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch.ops.batched_inverse import apply_block_inverse
+    from precond_tpu_torch.ops.cuda.packed_symv import (
+        packed_symv_cm, packed_symv_ref, packed_symv_t, unpack_sym96)
+
+    packed = run["inv"]
+    nb, bp = packed.nb, packed.f.shape[2]
+    rs3 = torch.as_tensor(np.random.default_rng(2).standard_normal((3, nb, 32)).astype(np.float32),
+                          device=DEVICE)
+    got = packed_symv_cm(packed, rs3)
+    rhs_cm = rs3.permute(1, 0, 2).reshape(nb, 96)                   # DOF c*32+l
+    plain = packed_symv_ref(packed, rhs_cm).reshape(nb, 3, 32).permute(1, 0, 2)
+    max_abs = _packed_ok(got, plain, f"{path} comp-major table B={nb} Bp={bp}, "
+                         "packed_symv_cm vs packed_symv_ref")
+    rows = apply_block_inverse(inv96, rs3.permute(1, 2, 0).reshape(nb, 96))   # DOF l*3+c
+    _packed_ok(got, rows.reshape(nb, 32, 3).permute(2, 0, 1),
+               f"{path} packed_symv_cm vs the dense row-major apply of the unpermuted inverse")
+
+    xt = rs3.new_zeros((96, bp))
+    xt[:, :nb] = rs3.permute(0, 2, 1).reshape(96, nb)
     dense = unpack_sym96(packed, bp)
-    xb = x.T.contiguous()[:, :, None]
-    lib_err = float((torch.bmm(dense, xb)[:, :, 0].T - plain).abs().max())
-    require(lib_err <= 1e-4 * max(scale, 1.0), "K2 library yardstick disagrees")
-    ms = time_ms(lambda: packed_symv_t(packed, x), warmup=5, iters=50)
-    plain_ms = time_ms(lambda: packed_symv_ref(packed, x.T), warmup=1, iters=5)
+    xb = xt.T.contiguous()[:, :, None]
+    ms = time_ms(lambda: packed_symv_t(packed, xt), warmup=5, iters=50)
+    plain_ms = time_ms(lambda: packed_symv_ref(packed, rhs_cm), warmup=1, iters=5)
     lib_ms = time_ms(lambda: torch.bmm(dense, xb), warmup=3, iters=20)
-    bms, by = bound_ms((48 * 96 + 3 * 96) * 4 * bp, 18432 * bp)
-    log(f"[K2 packed_symv] Bp={bp}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.bmm on the dense table {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-    return dict(name="packed_symv96", route="cuda", source="precond_tpu_torch/csrc/packed_symv.cu",
-                replaces="precond_tpu/ops/pallas/packed_symv.py:147", launches=launches,
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+    bound = bound_ms((48 * 96 + 3 * 96) * 4 * bp, 18432 * bp)
+    log(f"[K2 packed_symv] {path} Bp={bp}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.bmm on the dense table {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return _record("packed_symv96", "precond_tpu_torch/csrc/packed_symv.cu",
+                   "precond_tpu/ops/pallas/packed_symv.py:147", launches_by_path, path,
+                   max_abs, ms, plain_ms, bound, lib_ms)
 
 
-def kernel_symv(inv96, launches: int) -> dict:
+def check_symv(inv96, label: str):
     import numpy as np
     import torch
     from precond_tpu_torch.ops.batched_inverse import apply_block_inverse
@@ -427,20 +699,152 @@ def kernel_symv(inv96, launches: int) -> dict:
     scale = float(plain.abs().max())
     max_abs = float((got - plain).abs().max())
     ok = bool(((got - plain).abs() <= 1e-5 * plain.abs() + 1e-5 * scale).all())
-    log(f"[K3 symv] main-path inverse B={bsz}: kernel vs plain max abs {max_abs:.3e} "
+    log(f"[K3 symv] {label} inverse B={bsz}: kernel vs plain max abs {max_abs:.3e} "
         f"(tol 1e-5*|z| + 1e-5*max|z| = {1e-5 * scale:.3e}) ok={ok}")
-    require(ok, "K3 disagrees with its plain version")
+    require(ok, f"K3 disagrees with its plain version on the {label} table")
+    return max_abs, rhs
+
+
+def kernel_symv(inv96, launches_by_path: dict, path: str) -> dict:
+    import torch
+    from precond_tpu_torch.ops.batched_inverse import apply_block_inverse
+    from precond_tpu_torch.ops.cuda.symv import batched_symv
+
+    bsz = inv96.shape[0]
+    max_abs, rhs = check_symv(inv96, path)
     r3 = rhs[:, :, None]
     ms = time_ms(lambda: batched_symv(inv96, rhs), warmup=10, iters=200)
     plain_ms = time_ms(lambda: apply_block_inverse(inv96, rhs), warmup=10, iters=200)
     lib_ms = time_ms(lambda: torch.bmm(inv96, r3), warmup=10, iters=200)
-    bms, by = bound_ms((96 * 96 + 2 * 96) * 4 * bsz, 2 * 96 * 96 * bsz)
-    log(f"[K3 symv] B={bsz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.bmm {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-    return dict(name="symv96", route="cuda", source="precond_tpu_torch/csrc/symv.cu",
-                replaces="precond_tpu/ops/pallas/symv.py:29", launches=launches,
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+    bound = bound_ms((96 * 96 + 2 * 96) * 4 * bsz, 2 * 96 * 96 * bsz)
+    log(f"[K3 symv] {path} B={bsz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.bmm {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return _record("symv96", "precond_tpu_torch/csrc/symv.cu", "precond_tpu/ops/pallas/symv.py:29",
+                   launches_by_path, path, max_abs, ms, plain_ms, bound, lib_ms)
+
+
+def stencil_bsr(ssys):
+    """The stencil system as a 3x3-block BSR matrix over vertex-major DOFs
+    (the library yardstick's operand; the port never uses it)."""
+    import warnings
+
+    import torch
+
+    nx, ny = ssys.grid
+    n = nx * ny
+    dev = ssys.diag_t.device
+    v = torch.arange(n, device=dev)
+    i, j = torch.div(v, ny, rounding_mode="floor"), v % ny
+    cols = [v]
+    for di, dj in ssys.offsets:
+        ok = (i + di >= 0) & (i + di < nx) & (j + dj >= 0) & (j + dj < ny)
+        cols.append(torch.where(ok, v + di * ny + dj, n))
+    c, order = torch.sort(torch.stack(cols, dim=1), dim=1)       # off-grid (n) last
+    blocks = torch.cat([ssys.diag_t[None], ssys.dirs_t]).permute(3, 0, 1, 2)  # [n,D+1,3,3]
+    blocks = torch.take_along_dim(blocks, order[:, :, None, None], dim=1)
+    keep = c < n
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = keep.sum(dim=1).cumsum(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # "BSR support is in beta"
+        return torch.sparse_bsr_tensor(crow.to(torch.int32), c[keep].to(torch.int32),
+                                       blocks[keep].contiguous(), size=(3 * n, 3 * n))
+
+
+def _k4_check(diag_t, dirs_t, offsets, grid, label: str, seed: int) -> float:
+    import numpy as np
+    import torch
+    from precond_tpu_torch.ops.cuda.stencil_spmv import stencil_spmv
+    from precond_tpu_torch.ops.gridstencil import spmv_t_plain
+
+    n = diag_t.shape[-1]
+    xt = torch.as_tensor(np.random.default_rng(seed).standard_normal((3, n)).astype(np.float32),
+                         device=DEVICE)
+    got = stencil_spmv(diag_t, dirs_t, xt, offsets, grid)
+    plain = spmv_t_plain(diag_t, dirs_t, xt, offsets, grid)
+    scale = float(plain.abs().max())
+    max_abs = float((got - plain).abs().max())
+    ok = bool(torch.isfinite(got).all().item() and max_abs <= 5e-6 * scale)
+    log(f"[K4 stencil_spmv] {label}: kernel vs plain max abs {max_abs:.3e} "
+        f"(tol 5e-6*max|y| = {5e-6 * scale:.3e}) ok={ok}")
+    require(ok, f"K4 disagrees with its plain version: {label}")
+    return max_abs
+
+
+def kernel_stencil_spmv(run: dict, launches_by_path: dict, path: str, small: dict) -> dict:
+    """K4 at the cloth system's own planes and on the same system pinned
+    along its first 32 grid rows, then kernel / plain / library times; the
+    kernel also at the `small` run's planes."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch.ops.cuda.stencil_spmv import stencil_spmv
+    from precond_tpu_torch.ops.gridstencil import pin_vertices, spmv_t_plain
+
+    ssys = run["ssys"]
+    nx, ny = ssys.grid
+    n, nd = nx * ny, len(ssys.offsets)
+    args = (ssys.diag_t, ssys.dirs_t)
+    max_abs = _k4_check(*args, ssys.offsets, ssys.grid,
+                        f"{path} planes N={n} D={nd}", seed=5)
+    pinned = torch.zeros(n, dtype=torch.bool, device=DEVICE)
+    pinned[: 32 * ny] = True
+    ps = pin_vertices(ssys, pinned, 360.0)
+    _k4_check(ps.diag_t, ps.dirs_t, ps.offsets, ps.grid,
+              f"{path} pinned along its first 32 grid rows", seed=6)
+    del ps
+
+    xt = torch.as_tensor(np.random.default_rng(7).standard_normal((3, n)).astype(np.float32),
+                         device=DEVICE)
+    y = stencil_spmv(*args, xt, ssys.offsets, ssys.grid)
+    ms = time_ms(lambda: stencil_spmv(*args, xt, ssys.offsets, ssys.grid), warmup=5, iters=50)
+    plain_ms = time_ms(lambda: spmv_t_plain(*args, xt, ssys.offsets, ssys.grid), warmup=1, iters=5)
+
+    # library yardstick: one cuSPARSE block-sparse matvec of the same H
+    lib_ms, lib_note = None, ""
+    bsr = stencil_bsr(ssys)
+    xv = xt.T.contiguous().reshape(-1)
+    for what, call in (("torch.mv(bsr)", lambda: torch.mv(bsr, xv)),
+                       ("bsr @ x[:, None]", lambda: (bsr @ xv[:, None])[:, 0])):
+        try:
+            yl = call()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:   # the yardstick only; says why
+            lib_note += f"{what}: {str(e).splitlines()[0][:160]}; "
+            continue
+        err = float((yl.reshape(n, 3).T - y).abs().max())
+        log(f"[K4 stencil_spmv] library {what} on a {bsr.values().shape[0]}-block BSR: "
+            f"max abs vs kernel {err:.3e}")
+        require(err <= 1e-5 * float(y.abs().max()), "K4's library yardstick disagrees")
+        lib_ms = time_ms(call, warmup=3, iters=20)
+        lib_note = what
+        break
+    if lib_ms is None:
+        log(f"[K4 stencil_spmv] library yardstick did not run: {lib_note}")
+    del bsr
+
+    def k4_bound(n_):
+        return bound_ms((9 + 9 * nd) * 4 * n_ + 2 * 3 * 4 * n_, 2 * 9 * (nd + 1) * n_)
+
+    bound = k4_bound(n)
+    log(f"[K4 stencil_spmv] {path} N={n} D={nd}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {'%.4f ms' % lib_ms if lib_ms is not None else 'none'} ({lib_note}), "
+        f"bound {bound[0]:.4f} ms ({bound[1]})")
+
+    ss = small["ssys"]
+    label = f"cloth {small['grid']}"
+    _k4_check(ss.diag_t, ss.dirs_t, ss.offsets, ss.grid, f"{label} planes N={ss.num_verts}", seed=8)
+    xs = torch.as_tensor(
+        np.random.default_rng(9).standard_normal((3, ss.num_verts)).astype(np.float32), device=DEVICE)
+    ms_small = time_ms(lambda: stencil_spmv(ss.diag_t, ss.dirs_t, xs, ss.offsets, ss.grid),
+                       warmup=10, iters=200)
+    bound_small = k4_bound(ss.num_verts)
+    log(f"[K4 stencil_spmv] {label} N={ss.num_verts}: kernel {ms_small:.4f} ms, "
+        f"bound {bound_small[0]:.4f} ms ({bound_small[1]})")
+    return _record("stencil_spmv", "precond_tpu_torch/csrc/stencil_spmv.cu",
+                   "precond_tpu/ops/pallas/stencil_spmv.py:48", launches_by_path, path,
+                   max_abs, ms, plain_ms, bound, lib_ms, library_call=lib_note,
+                   ms_by_path={path: ms, label: ms_small},
+                   bound_ms_by_path={path: bound[0], label: bound_small[0]})
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +853,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--grid", type=int, default=1024, help="side of the packed-path cloth")
     ap.add_argument("--dense-grid", type=int, default=256, help="side of the dense-path cloth")
+    ap.add_argument("--cloth", type=int, default=1024,
+                    help="side of the grid-path cloth (comp-major + packed)")
+    ap.add_argument("--cloth-dense", type=int, default=256,
+                    help="side of the grid-path cloth (comp-major + dense), and of grid_solve_step")
     args = ap.parse_args(argv)
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -483,13 +891,34 @@ def main(argv=None) -> int:
 
     big = run_general(args.grid, expect_packed=True, profile=True)
     dense = run_general(args.dense_grid, expect_packed=False, profile=True)
+    cl = run_cloth(args.cloth, expect_packed=True, profile=True)
+    cl_dense = run_cloth(args.cloth_dense, expect_packed=False, profile=True)
+    gss = run_grid_solve_step(args.cloth_dense)
     check_references()
+    check_grid_references()
 
-    kernels = [
-        kernel_spd_inverse(main_path_h96(big), big["counts"]["spd_inverse96"]),
-        kernel_packed_symv(big["pre"].state.inv96, big["counts"]["packed_symv96"]),
-        kernel_symv(dense["pre"].state.inv96, dense["counts"]["symv96"]),
-    ]
+    runs = {f"general {args.grid}": big["counts"], f"general {args.dense_grid}": dense["counts"],
+            f"cloth {args.cloth}": cl["counts"], f"cloth {args.cloth_dense}": cl_dense["counts"],
+            f"grid_solve_step {args.cloth_dense}": gss["counts"]}
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in runs.items()}
+
+    # slice-1 paths: each kernel against its plain version at their shapes
+    check_spd_inverse_blocks(main_path_h96(big), f"general {args.grid}")
+    check_packed_symv_table(big["pre"].state.inv96, f"general {args.grid}")
+    check_symv(dense["pre"].state.inv96, f"general {args.dense_grid}")
+    # the records: the cloth paths' shapes, with every path's launches
+    from precond_tpu_torch.ops.cuda.spd_inverse import spd_inverse
+    from precond_tpu_torch.ops.gridassembly import assemble_grid_hessian
+
+    h96 = assemble_grid_hessian(cl["dgr"], cl["drr"], cl["offsets"], cl["k"], cl["cfg"])
+    head = f"cloth {args.cloth}"
+    kernels = [kernel_spd_inverse(h96, by_path("spd_inverse96"), head)]
+    kernels.append(kernel_packed_symv_cm(cl, spd_inverse(h96), by_path("packed_symv96"), head))
+    del h96
+    kernels.append(kernel_symv(cl_dense["inv"].m, by_path("symv96"), f"cloth {args.cloth_dense}"))
+    kernels.append(kernel_stencil_spmv(cl, by_path("stencil_spmv"), head, cl_dense))
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,10 +1,10 @@
 """Solver configuration (PyTorch port of ``precond_tpu/config.py``).
 
-The JAX package's fields that the general-mesh path reads, with the same
-defaults, checks and static level geometry, so a configuration means the
-same hierarchy in both. Fields that select code not ported yet are absent
-rather than silently ignored: the collision budget (max_collision_per_vert),
-the grid path's solve_layout, bf16 inverse storage (inverse_dtype) and the
+The JAX package's fields that the general-mesh and grid paths read, with
+the same defaults, checks and static level geometry, so a configuration
+means the same hierarchy in both. Fields that select code not ported yet
+are absent rather than silently ignored: the collision budget
+(max_collision_per_vert), bf16 inverse storage (inverse_dtype) and the
 TPU-only kernel switches (use_pallas_symv, pallas_inverse_group, and
 inverse_kernel="pallas", whose function the "panel" kernel computes).
 The reference hard-codes these as compile-time constants:
@@ -75,6 +75,19 @@ class SchwarzConfig:
             return True
         return self.num_blocks(num_verts) >= self.packed_symv_min_blocks
 
+    # Component-major solve layout of the static 2-D grid path: carries are
+    # [3,N] planes, the SpMV is gridstencil.spmv_t, the crossings are
+    # gridmorton.grid_to_morton_cm / morton_to_grid_cm and the apply is
+    # ops/gridapply.precondition_grid_cm on a comp-major inverse (packed
+    # above packed_symv_min_blocks, dense below).
+    #   "auto" — comp-major wherever the path supports it (2-D grid
+    #            prepares, >= 32x32; the general path pins rows)
+    #   "cm" / "rows" — force
+    solve_layout: str = "auto"
+
+    def use_cm(self, num_verts: int) -> bool:
+        return self.solve_layout != "rows"
+
     # One-hot (batched-matmul) forms of the restriction and prolongation
     # transfer ops instead of the scatter/gather forms.
     use_onehot_transfer: bool = True
@@ -99,6 +112,8 @@ class SchwarzConfig:
             raise ValueError(f"closure_iters={self.closure_iters} is too few for a 32-wide bank")
         if self.symv_kernel not in ("auto", "dense", "packed"):
             raise ValueError(self.symv_kernel)
+        if self.solve_layout not in ("auto", "rows", "cm"):
+            raise ValueError(self.solve_layout)
         if self.morton_normalization not in ("isotropic", "per_axis"):
             raise ValueError(self.morton_normalization)
         if not 0.0 < self.coarse_damping <= 1.0:

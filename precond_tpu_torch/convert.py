@@ -14,7 +14,8 @@ import torch
 from .device import resolve_device
 from .ops.apply import ApplyState
 from .ops.blockcsr import BlockEll
-from .ops.cuda.packed_symv import PackedInverse
+from .ops.cuda.packed_symv import DenseInverseCM, PackedInverse, PackedInverseCM
+from .ops.gridstencil import StencilSystem
 from .solver import SortMaps
 
 
@@ -62,3 +63,36 @@ def apply_state_from_numpy(
         restrict_pos=_t(restrict_pos, dev, np.int32),
         restrict_pb=_t(restrict_pb, dev, np.int32),
     )
+
+
+def stencil_system_from_numpy(diag_t, dirs_t, offsets, grid, sym=False,
+                              device=None) -> StencilSystem:
+    """StencilSystem from the JAX one's planes (diag_t [3,3,N], dirs_t
+    [D,3,3,N]) and its static offsets, grid and sym."""
+    dev = resolve_device(device)
+    return StencilSystem(_t(diag_t, dev, np.float32), _t(dirs_t, dev, np.float32),
+                         offsets, grid, sym=sym)
+
+
+def grid_blocks_from_numpy(diag_rows, dirs_rows, offsets, device=None):
+    """The row-major grid blocks (diag_rows [N,3,3], dirs_rows [D,N,3,3],
+    offsets) of the JAX package's assemble_system_grid."""
+    dev = resolve_device(device)
+    return (_t(diag_rows, dev, np.float32), _t(dirs_rows, dev, np.float32),
+            tuple(tuple(int(v) for v in o) for o in offsets))
+
+
+def packed_inverse_cm_from_numpy(f, dg, nb, device=None) -> PackedInverseCM:
+    """PackedInverseCM from the JAX one's fields (same layout)."""
+    dev = resolve_device(device)
+    return PackedInverseCM(f=_t(f, dev, np.float32), dg=_t(dg, dev, np.float32),
+                           nb=int(np.asarray(nb)))
+
+
+def dense_inverse_cm_from_numpy(m, device=None) -> DenseInverseCM:
+    """DenseInverseCM from the JAX one's batch-minor table m [3,32,3,32,B]:
+    the port stores the same comp-major blocks batch-major, [B,96,96]."""
+    dev = resolve_device(device)
+    arr = np.asarray(m, np.float32)
+    b = arr.shape[-1]
+    return DenseInverseCM(m=_t(np.transpose(arr, (4, 0, 1, 2, 3)).reshape(b, 96, 96), dev))

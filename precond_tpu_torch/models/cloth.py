@@ -1,13 +1,15 @@
 """Cloth model: grid mesh, mass-spring Hessian, implicit-Euler system.
 
-Port of ``precond_tpu/models/cloth.py:26-217``, the part the general-mesh
-path needs: an n x m grid with structural, shear and bending springs, and
-the SPD implicit-Euler system
+Port of ``precond_tpu/models/cloth.py:26-350``: an n x m grid with
+structural, shear and bending springs, and the SPD implicit-Euler system
 
     H = (m / dt^2) M + sum_e k_e (d_e d_e^T expanded over the edge stencil)
 
-in Gauss-Newton form (k d d^T per spring), SPD for any configuration.
-Topology is built on the host (NumPy); block values on the device.
+in Gauss-Newton form (k d d^T per spring), SPD for any configuration, as
+a block-ELL matrix (the general path) or in stencil form (the structured
+grid path: StencilSystem planes for the SpMV, row-major per-direction
+blocks for prepare_grid). Topology is built on the host (NumPy); block
+values on the device.
 """
 
 from __future__ import annotations
@@ -188,3 +190,137 @@ def update_ell_blocks(h: BlockEll, mesh_springs: torch.Tensor, stiffness: torch.
     eye = torch.eye(3, dtype=h.diag.dtype, device=h.diag.device)
     diag = mass_over_dt2 * eye[None] + gathered.sum(dim=1)
     return h._replace(diag=diag, blocks=-gathered)
+
+
+# ---- stencil-form assembly (structured-grid path) --------------------------
+#
+# On a regular grid every spring lies at one of ~6 canonical (di, dj)
+# offsets, so the system can be held in stencil form (ops/gridstencil.py)
+# and assembly needs no gathers: position differences are window slices,
+# and each direction's blocks pad into place.
+
+def stencil_structure_from_springs(nx: int, ny: int, springs: np.ndarray,
+                                   stiffness: np.ndarray):
+    """Host-side one-time structure: canonical offsets + stiffness grids.
+
+    Returns (offsets, ks) where offsets is a tuple of canonical (di, dj)
+    with di > 0 or (di == 0 and dj > 0), and ks f32[Dc, nx, ny] holds the
+    stiffness of the spring leaving vertex (i, j) in that direction (0 if
+    absent; duplicates accumulate).
+    """
+    a, b = springs[:, 0].astype(np.int64), springs[:, 1].astype(np.int64)
+    di = b // ny - a // ny
+    dj = b % ny - a % ny
+    flip = (di < 0) | ((di == 0) & (dj < 0))
+    a, b = np.where(flip, b, a), np.where(flip, a, b)
+    di, dj = np.where(flip, -di, di), np.where(flip, -dj, dj)
+    keys = sorted({(int(p), int(q)) for p, q in zip(di, dj)})
+    ks = np.zeros((len(keys), nx, ny), np.float32)
+    for d, (p, q) in enumerate(keys):
+        sel = (di == p) & (dj == q)
+        np.add.at(ks[d].reshape(-1), a[sel], stiffness[sel])
+    return tuple(keys), ks
+
+
+def _pad2(t: torch.Tensor, rows: Tuple[int, int], cols: Tuple[int, int]) -> torch.Tensor:
+    """Zero-pad the leading two axes of [mx, my, 3, 3]."""
+    return torch.nn.functional.pad(t, (0, 0, 0, 0, cols[0], cols[1], rows[0], rows[1]))
+
+
+def _stencil_block_fields(offsets, ks: torch.Tensor, positions: torch.Tensor,
+                          mass_over_dt2: float, grid):
+    """Shared block computation: positions -> (diag [n,3,3], dirs list of
+    [n,3,3] row-major, full_offsets). Gather-free.
+
+    Per canonical direction: window-slice the endpoint positions, form the
+    Gauss-Newton block k d^ d^T per spring, pad it into both endpoints'
+    direction planes (negated off-diagonal), and accumulate the diagonal.
+    """
+    nx, ny = grid
+    n = nx * ny
+    pos = positions.reshape(nx, ny, 3)
+    eye = torch.eye(3, dtype=positions.dtype, device=positions.device)
+    diag = (mass_over_dt2 * eye).expand(nx, ny, 3, 3)
+    dirs, full_offsets = [], []
+    for d, (di, dj) in enumerate(offsets):
+        ai0, aj0 = max(0, -di), max(0, -dj)
+        bi0, bj0 = max(0, di), max(0, dj)
+        mx, my = nx - abs(di), ny - abs(dj)
+        pa = pos[ai0: ai0 + mx, aj0: aj0 + my]
+        pb = pos[bi0: bi0 + mx, bj0: bj0 + my]
+        dv = pb - pa
+        dn = dv * torch.rsqrt(torch.clamp(torch.sum(dv * dv, -1, keepdim=True), min=1e-12))
+        kb = ks[d, ai0: ai0 + mx, aj0: aj0 + my][..., None, None] \
+            * dn[..., :, None] * dn[..., None, :]            # [mx,my,3,3]
+        at_a = _pad2(kb, (ai0, nx - mx - ai0), (aj0, ny - my - aj0))
+        at_b = _pad2(kb, (bi0, nx - mx - bi0), (bj0, ny - my - bj0))
+        diag = diag + at_a + at_b
+        dirs.append(-at_a.reshape(n, 3, 3))
+        full_offsets.append((di, dj))
+        dirs.append(-at_b.reshape(n, 3, 3))
+        full_offsets.append((-di, -dj))
+    return diag.reshape(n, 3, 3), dirs, tuple(full_offsets)
+
+
+def update_stencil_blocks(offsets, ks: torch.Tensor, positions: torch.Tensor,
+                          mass_over_dt2: float, grid, sym: bool = False):
+    """Stencil refresh: positions -> StencilSystem (vertex-minor planes).
+
+    sym=True keeps only the canonical half of the direction planes (the
+    symmetric SpMV applies each plane to both endpoints)."""
+    from ..ops.gridstencil import StencilSystem
+
+    nx, ny = grid
+    n = nx * ny
+    diag, dirs, full_offsets = _stencil_block_fields(
+        offsets, ks, positions, mass_over_dt2, grid
+    )
+    if sym:
+        dirs = dirs[0::2]                 # canonical (+d) planes only
+        full_offsets = full_offsets[0::2]
+    return StencilSystem(
+        diag.reshape(n, 9).T.contiguous().reshape(3, 3, n),
+        torch.stack(dirs).reshape(-1, n, 9).permute(0, 2, 1).contiguous().reshape(-1, 3, 3, n),
+        tuple(full_offsets), (nx, ny), sym=sym,
+    )
+
+
+def update_grid_blocks(offsets, ks: torch.Tensor, positions: torch.Tensor,
+                       mass_over_dt2: float, grid):
+    """Refresh of ROW-MAJOR blocks for the static grid assembly
+    (ops/gridassembly.py): (diag f32[N,3,3], dirs f32[D,N,3,3])."""
+    diag, dirs, _ = _stencil_block_fields(offsets, ks, positions, mass_over_dt2, grid)
+    return diag, torch.stack(dirs)
+
+
+def _grid_inputs(mesh: ClothMesh, positions, device, what: str):
+    if mesh.grid is None:
+        raise ValueError(f"{what} needs a grid mesh")
+    dev = resolve_device(device)
+    nx, ny = mesh.grid
+    offsets, ks = stencil_structure_from_springs(nx, ny, mesh.springs, mesh.stiffness)
+    pos = mesh.positions if positions is None else positions
+    return (offsets, torch.as_tensor(ks, device=dev),
+            torch.as_tensor(np.asarray(pos, np.float32), device=dev),
+            mesh.mass / mesh.dt**2, (nx, ny))
+
+
+def assemble_system_grid(mesh: ClothMesh, positions: np.ndarray | None = None, device=None):
+    """Row-major per-direction blocks for the static grid assembly, on
+    `device` (the card unless the caller asks for the CPU).
+
+    Returns (diag f32[N,3,3], dirs f32[D,N,3,3], full_offsets): the same
+    physics as assemble_system_stencil in the layout ops/gridassembly.py
+    consumes."""
+    offsets, ks, pos, m_dt2, grid = _grid_inputs(mesh, positions, device, "grid assembly")
+    full_offsets = tuple(o for di, dj in offsets for o in ((di, dj), (-di, -dj)))
+    diag, dirs = update_grid_blocks(offsets, ks, pos, m_dt2, grid)
+    return diag, dirs, full_offsets
+
+
+def assemble_system_stencil(mesh: ClothMesh, positions: np.ndarray | None = None,
+                            sym: bool = False, device=None):
+    """Implicit-Euler system as a StencilSystem (structured grids only), on
+    `device` (the card unless the caller asks for the CPU)."""
+    offsets, ks, pos, m_dt2, grid = _grid_inputs(mesh, positions, device, "stencil assembly")
+    return update_stencil_blocks(offsets, ks, pos, m_dt2, grid, sym)

@@ -37,7 +37,7 @@ _lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}
 #: kernel launches per wrapper; a wrapper adds one where it launches, and
 #: nowhere else (a run can show that the main path went through a kernel)
-launch_counts = {"spd_inverse96": 0, "packed_symv96": 0, "symv96": 0}
+launch_counts = {"spd_inverse96": 0, "packed_symv96": 0, "symv96": 0, "stencil_spmv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -45,12 +45,14 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (pointers, sizes, stream); every entry returns cudaError_t
     "spd_inverse96": (_VP, _VP, _I, _VP),
     "packed_symv96": (_VP, _VP, _VP, _VP, _I, _VP),
     "symv96": (_VP, _VP, _VP, _I, _VP),
+    # diag, dirs, x, y, nx, ny, nd, host int[2*nd] offsets, stream
+    "stencil_spmv": (_VP, _VP, _VP, _VP, _I, _I, _I, _IP, _VP),
 }
 
 

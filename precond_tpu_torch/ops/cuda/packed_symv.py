@@ -22,6 +22,16 @@ consecutive blocks b, so every load of F is coalesced.
 The plain version is ``packed_symv_ref`` (unpack to dense, einsum): the
 kernel wrapper takes it for CPU tensors only; for a CUDA tensor it launches
 the kernel or raises.
+
+Component-major entry points (the grid path's comp-major solve,
+ops/gridapply.precondition_grid_cm): the bank's 96 DOFs renumbered c*32+l
+instead of l*3+c, so a [3,B,32] stack of component planes is the kernel's
+native [96,Bp] rhs after one transpose. ``PackedInverseCM`` runs through
+the same K2 kernel; ``DenseInverseCM`` stores the comp-major-permuted
+[B,96,96] table and runs through K3 (ops/cuda/symv.py). The JAX package
+keeps the dense table batch-minor [3,32,3,32,B] for a TPU's on-chip
+memory; the function is the same. Both are types of their own, so a
+comp-major table can never reach a row-major apply.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from . import _lib
+from .symv import batched_symv
 
 DOF, HALF = 96, 48
 
@@ -41,6 +52,20 @@ class PackedInverse(NamedTuple):
     f: torch.Tensor   # f32[48, 96, Bp]
     dg: torch.Tensor  # f32[96, Bp]
     nb: int           # true (unpadded) block count
+
+
+class PackedInverseCM(NamedTuple):
+    """PackedInverse of the comp-major-permuted blocks (DOF c*32+l)."""
+
+    f: torch.Tensor   # f32[48, 96, Bp]
+    dg: torch.Tensor  # f32[96, Bp]
+    nb: int
+
+
+class DenseInverseCM(NamedTuple):
+    """Dense inverses in the comp-major DOF convention (DOF c*32+l)."""
+
+    m: torch.Tensor   # f32[B, 96, 96]
 
 
 def _tri_masks(device):
@@ -112,3 +137,45 @@ def packed_symv(packed: PackedInverse, rhs: torch.Tensor) -> torch.Tensor:
     xt = torch.zeros((DOF, bp), dtype=rhs.dtype, device=rhs.device)
     xt[:, :b] = rhs.T
     return packed_symv_t(packed, xt)[:, :b].T
+
+
+def cm_permute96(inv96: torch.Tensor) -> torch.Tensor:
+    """[B,96,96] lane-major (DOF l*3+c) -> comp-major (DOF c*32+l) rows and
+    columns: a pure reshape-transpose, since 96 = 32 lanes x 3 components."""
+    b = inv96.shape[0]
+    return inv96.reshape(b, 32, 3, 32, 3).permute(0, 2, 1, 4, 3).reshape(b, DOF, DOF)
+
+
+def pack_sym96_cm(inv96: torch.Tensor, block_b: int = 256) -> PackedInverseCM:
+    """pack_sym96 of the comp-major-permuted blocks."""
+    return PackedInverseCM(*pack_sym96(cm_permute96(inv96), block_b=block_b))
+
+
+def packed_symv_cm(packed: PackedInverseCM, rs3: torch.Tensor) -> torch.Tensor:
+    """[3,B,32] comp-plane bank vectors -> [3,B,32] through K2.
+
+    The kernel's [96,Bp] rhs is the three [32,B] planes stacked: one
+    transpose each way around the launch."""
+    if not isinstance(packed, PackedInverseCM):
+        raise TypeError("packed_symv_cm needs a PackedInverseCM (pack_sym96_cm)")
+    b = rs3.shape[1]
+    bp = packed.f.shape[2]
+    xt = rs3.new_zeros((DOF, bp))
+    xt[:, :b] = rs3.permute(0, 2, 1).reshape(DOF, b)
+    zt = packed_symv_t(packed, xt)
+    return zt[:, :b].reshape(3, 32, b).permute(0, 2, 1)
+
+
+def dense_cm(inv96: torch.Tensor) -> DenseInverseCM:
+    """[B,96,96] lane-major dense -> DenseInverseCM."""
+    return DenseInverseCM(m=cm_permute96(inv96).contiguous())
+
+
+def dense_symv_cm(inv: DenseInverseCM, rs3: torch.Tensor) -> torch.Tensor:
+    """[3,B,32] -> [3,B,32] dense comp-plane symv through K3 on the
+    [B,96] = rs3.permute(1,0,2) rhs."""
+    if not isinstance(inv, DenseInverseCM):
+        raise TypeError("dense_symv_cm needs a DenseInverseCM (dense_cm)")
+    b = rs3.shape[1]
+    rhs = rs3.permute(1, 0, 2).reshape(b, DOF)
+    return batched_symv(inv.m, rhs).reshape(b, 3, 32).permute(1, 0, 2)

@@ -7,8 +7,10 @@ Mirrors the reference contract (SeSchwarzPreconditioner.h:56-63):
                             factorization (hand-written inverse kernel)
   Preconditioning        -> apply(): z = M^-1 r (hand-written symv kernel)
 
-The structured grid/box prepares (prepare_grid, prepare_box) and collision
-stencils arrive with later slices of the port.
+The structured 2-D grid prepare (prepare_grid: static assembly over the
+analytic tile order, no sort, permute or hierarchy build) feeds the grid
+apply (ops/gridapply.py). The box prepare and collision stencils arrive
+with later slices of the port.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from .ops.apply import ApplyState, precondition
 from .ops.assembly import assemble_banked_hessian
 from .ops.batched_inverse import invert_spd_blocks
 from .ops.blockcsr import BlockEll, permute
-from .ops.cuda.packed_symv import pack_sym96
+from .ops.gridapply import analytic_hierarchy
+from .ops.gridassembly import assemble_grid_hessian
+from .ops.cuda.packed_symv import dense_cm, pack_sym96, pack_sym96_cm
 from .ops.cuda.spd_inverse import spd_inverse
 from .utils import aabb, morton
 
@@ -59,14 +63,22 @@ def _debug_enabled(cfg: SchwarzConfig) -> bool:
     return bool(cfg.debug_checks or os.environ.get("PRECOND_DEBUG_CHECKS"))
 
 
-def _factorize(h96: torch.Tensor, cfg: SchwarzConfig, n: int):
-    """Batched 96x96 SPD factorization tail of the prepare.
+def _factorize(h96: torch.Tensor, cfg: SchwarzConfig, n: int, allow_cm: bool = False):
+    """Batched 96x96 SPD factorization tail shared by the prepares.
 
-    Returns dense f32[B,96,96] inverses, or — when
-    cfg.use_packed_symv(n) — the packed-symmetric PackedInverse form
-    (4704 floats/block, the reference's LDLtInverse512 packed count,
-    cpp:165,1349).
+    Returns dense f32[B,96,96] inverses, or — when cfg.use_packed_symv(n) —
+    the packed-symmetric PackedInverse form (4704 floats/block, the
+    reference's LDLtInverse512 packed count, cpp:165,1349). A prepare that
+    supports the comp-major solve (allow_cm: the >= 32x32 2-D grid path)
+    returns the comp-major forms instead when cfg.use_cm(n): PackedInverseCM
+    above the packed threshold, DenseInverseCM below it.
     """
+    if cfg.solve_layout == "cm" and not allow_cm:
+        warnings.warn(
+            "solve_layout='cm' was forced but this prepare path pins the "
+            "row-major layout (only >=32x32 2-D grid prepares honor cm); "
+            "proceeding row-major"
+        )
     if cfg.inverse_kernel == "xla":
         inv96 = invert_spd_blocks(h96)
     else:
@@ -74,9 +86,11 @@ def _factorize(h96: torch.Tensor, cfg: SchwarzConfig, n: int):
         # the CPU. Debug mode disables the silent identity
         # repair so a genuine factorization bug reaches assert_healthy.
         inv96 = spd_inverse(h96, repair=not _debug_enabled(cfg))
+    cm = allow_cm and cfg.use_cm(n)
     if cfg.use_packed_symv(n):
-        return pack_sym96(inv96, block_b=cfg.packed_symv_block_b)
-    return inv96
+        pack = pack_sym96_cm if cm else pack_sym96
+        return pack(inv96, block_b=cfg.packed_symv_block_b)
+    return dense_cm(inv96) if cm else inv96
 
 
 def prepare_with_system(
@@ -94,13 +108,17 @@ def prepare_with_system(
     """
     if stencils is not None:
         raise NotImplementedError("collision stencils are not ported yet")
-    if analytic_hier:
-        raise NotImplementedError("the analytic grid/box hierarchy is not ported yet")
     n = ell.num_verts
     ell_sorted = permute(ell, maps.sorted_to_orig, maps.orig_to_sorted)
-    hier, merge_map = hi.build_hierarchy(
-        ell_sorted.idx, ell_sorted.mask, cfg, None, with_merge_map=True
-    )
+    if analytic_hier:
+        # The caller's ordering guarantees single-cluster banks at every
+        # level (the analytic tile order): the hierarchy is arithmetic, so
+        # build_hierarchy is skipped (ops/gridapply.analytic_hierarchy).
+        hier, merge_map = analytic_hierarchy(n, cfg, ell.diag.device), None
+    else:
+        hier, merge_map = hi.build_hierarchy(
+            ell_sorted.idx, ell_sorted.mask, cfg, None, with_merge_map=True
+        )
     h96 = assemble_banked_hessian(ell_sorted, hier, cfg, None, merge_map=merge_map)
     inv96 = _factorize(h96, cfg, n)
     state = ApplyState(
@@ -115,6 +133,32 @@ def prepare_with_system(
         restrict_pb=hier.pb,
     )
     return state, ell_sorted
+
+
+def prepare_grid(
+    diag_rows: torch.Tensor,   # f32[N,3,3] grid vertex order
+    dirs_rows: torch.Tensor,   # f32[D,N,3,3] grid order
+    offsets,                   # tuple of (di, dj), one per plane of dirs_rows
+    k: int,                    # the grid is 2^k x 2^k
+    cfg: SchwarzConfig,
+    stencils=None,
+    o2s=None,
+):
+    """Structured-grid prepare: static assembly + factorization -> inverses.
+
+    For tile-ordered power-of-two grids the hierarchy is arithmetic
+    (ops/gridapply.py) and assembly is static placement
+    (ops/gridassembly.py), so prepare needs no Morton sort, no ELL
+    permutation and no hierarchy build: the whole phase is the banked
+    assembly plus the inverse kernel. Runs on the inputs' device. Apply
+    with ops.gridapply.precondition_grid (dense / PackedInverse) or
+    precondition_grid_cm (the comp-major forms, chosen by cfg.use_cm on
+    grids of at least 32x32).
+    """
+    if stencils is not None or o2s is not None:
+        raise NotImplementedError("collision stencils on the grid path arrive with the contact slice")
+    h96 = assemble_grid_hessian(diag_rows, dirs_rows, offsets, k, cfg)
+    return _factorize(h96, cfg, diag_rows.shape[0], allow_cm=k >= 5)
 
 
 def prepare_preconditioner(

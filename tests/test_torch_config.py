@@ -17,11 +17,13 @@ VARIANTS = [
     {"symv_kernel": "dense"},
     {"symv_kernel": "packed"},
     {"packed_symv_min_blocks": 100, "max_applied_levels": 3},
+    {"solve_layout": "cm"},
+    {"solve_layout": "rows"},
 ]
 
 # JAX fields that select code the port does not carry yet; the port leaves
 # them out so setting one fails loudly instead of doing nothing
-NOT_CARRIED = {"max_collision_per_vert", "solve_layout", "inverse_dtype",
+NOT_CARRIED = {"max_collision_per_vert", "inverse_dtype",
                "use_pallas_symv", "pallas_inverse_group"}
 
 
@@ -36,6 +38,7 @@ def test_level_geometry_matches_jax(n, variant):
     assert t.total_capacity(n) == j.total_capacity(n)
     assert t.num_blocks(n) == j.num_blocks(n)
     assert t.use_packed_symv(n) == j.use_packed_symv(n)
+    assert t.use_cm(n) == j.use_cm(n)
 
 
 def test_fields_and_defaults_match_jax():
@@ -48,6 +51,7 @@ def test_fields_and_defaults_match_jax():
 @pytest.mark.parametrize("bad", [
     {"bank_size": 16}, {"closure_iters": 4}, {"symv_kernel": "x"},
     {"morton_normalization": "x"}, {"coarse_damping": 0.0}, {"coarse_damping": 1.5},
+    {"solve_layout": "x"},
 ])
 def test_post_init_rejects_what_jax_rejects(bad):
     with pytest.raises(AssertionError):
@@ -58,7 +62,7 @@ def test_post_init_rejects_what_jax_rejects(bad):
 
 @pytest.mark.parametrize("bad", [
     {"inverse_kernel": "pallas"}, {"inverse_dtype": "bfloat16"}, {"use_pallas_symv": True},
-    {"solve_layout": "rows"}, {"max_collision_per_vert": 16},
+    {"pallas_inverse_group": 16}, {"max_collision_per_vert": 16},
 ])
 def test_options_not_carried_are_refused(bad):
     JaxConfig(**bad)

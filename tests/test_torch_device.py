@@ -8,9 +8,10 @@ import torch
 from precond_tpu_torch import SchwarzConfig, SchwarzPreconditioner, convert
 from precond_tpu_torch.device import resolve_device
 from precond_tpu_torch.models import cloth
-from precond_tpu_torch.ops import blockcsr
+from precond_tpu_torch.ops import blockcsr, gridapply, gridassembly
 from precond_tpu_torch.parallel.sharded import solve_step
 from precond_tpu_torch.solver import compute_sort_maps
+from precond_tpu_torch.utils import gridmorton
 
 
 @pytest.fixture
@@ -24,6 +25,9 @@ def _mesh():
 
 @pytest.mark.parametrize("entry", [
     "preconditioner", "solve_step", "assemble_system", "from_coo", "convert", "resolve",
+    "assemble_system_grid", "assemble_system_stencil", "sort_index", "grid_pattern_upload",
+    "analytic_hierarchy", "convert_stencil", "convert_grid_blocks", "convert_packed_cm",
+    "convert_dense_cm",
 ])
 def test_entry_points_raise_without_card(no_card, entry):
     mesh = _mesh()
@@ -38,6 +42,19 @@ def test_entry_points_raise_without_card(no_card, entry):
             2, np.array([0]), np.array([1]), np.ones((1, 3, 3)), np.ones((2, 3, 3))),
         "convert": lambda: convert.sort_maps_from_numpy(np.arange(3), np.arange(3)),
         "resolve": lambda: resolve_device(None),
+        "assemble_system_grid": lambda: cloth.assemble_system_grid(mesh),
+        "assemble_system_stencil": lambda: cloth.assemble_system_stencil(mesh),
+        "sort_index": lambda: gridmorton.sort_index(3),
+        "grid_pattern_upload": lambda: gridassembly.device_pattern(
+            3, ((1, 0), (-1, 0)), SchwarzConfig()),
+        "analytic_hierarchy": lambda: gridapply.analytic_hierarchy(64, SchwarzConfig()),
+        "convert_stencil": lambda: convert.stencil_system_from_numpy(
+            np.zeros((3, 3, 4)), np.zeros((0, 3, 3, 4)), (), (2, 2)),
+        "convert_grid_blocks": lambda: convert.grid_blocks_from_numpy(
+            np.zeros((4, 3, 3)), np.zeros((0, 4, 3, 3)), ()),
+        "convert_packed_cm": lambda: convert.packed_inverse_cm_from_numpy(
+            np.zeros((48, 96, 1)), np.zeros((96, 1)), 1),
+        "convert_dense_cm": lambda: convert.dense_inverse_cm_from_numpy(np.zeros((3, 32, 3, 32, 1))),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

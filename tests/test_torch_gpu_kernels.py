@@ -124,6 +124,92 @@ def test_symv_kernel_matches_plain(cuda, b):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _cloth_stencil(nx, ny, cuda, pin_rows=0):
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.gridstencil import pin_vertices
+
+    mesh = cloth.make_grid(nx, ny, z_wave=0.02, mass=0.001)
+    sys_ = cloth.assemble_system_stencil(mesh, device=cuda)
+    if pin_rows:
+        pinned = torch.zeros(nx * ny, dtype=torch.bool, device=cuda)
+        pinned[: pin_rows * ny] = True
+        sys_ = pin_vertices(sys_, pinned, 360.0)
+    return sys_
+
+
+@pytest.mark.parametrize("nx,ny,pin", [(32, 32, 0), (64, 64, 0), (32, 64, 0), (48, 80, 1),
+                                       (32, 32, 1)])
+def test_stencil_spmv_kernel_matches_plain(cuda, nx, ny, pin):
+    """K4 vs its plain version at 5e-6 * max|y| (tests/test_pallas_stencil_spmv.py:21-23),
+    square and not, plain and pinned."""
+    from precond_tpu_torch.ops.cuda.stencil_spmv import stencil_spmv
+    from precond_tpu_torch.ops.gridstencil import spmv_t_plain
+
+    s = _cloth_stencil(nx, ny, cuda, pin)
+    xt = torch.as_tensor(np.random.default_rng(0).standard_normal((3, nx * ny)).astype(np.float32),
+                         device=cuda)
+    before = _lib.launch_counts["stencil_spmv"]
+    got = stencil_spmv(s.diag_t, s.dirs_t, xt, s.offsets, s.grid)
+    assert _lib.launch_counts["stencil_spmv"] == before + 1
+    want = spmv_t_plain(s.diag_t, s.dirs_t, xt, s.offsets, s.grid)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 5e-6 * float(want.abs().max())
+
+
+def test_stencil_spmv_kernel_arbitrary_offsets(cuda):
+    """Random planes (nonzero where the neighbour is off-grid), negative and
+    long shifts, nx != ny: the kernel skips exactly what the 2-D padding of
+    the plain version skips."""
+    from precond_tpu_torch.ops.cuda.stencil_spmv import stencil_spmv
+    from precond_tpu_torch.ops.gridstencil import spmv_t_plain
+
+    nx, ny = 37, 23
+    offsets = ((3, -2), (0, 5), (-4, 1), (1, 0), (0, -1), (-1, -1), (7, 7), (-9, 0))
+    rng = np.random.default_rng(1)
+    n = nx * ny
+    diag = torch.as_tensor(rng.standard_normal((3, 3, n)).astype(np.float32), device=cuda)
+    dirs = torch.as_tensor(rng.standard_normal((len(offsets), 3, 3, n)).astype(np.float32),
+                           device=cuda)
+    xt = torch.as_tensor(rng.standard_normal((3, n)).astype(np.float32), device=cuda)
+    got = stencil_spmv(diag, dirs, xt, offsets, (nx, ny))
+    want = spmv_t_plain(diag, dirs, xt, offsets, (nx, ny))
+    assert float((got - want).abs().max()) <= 5e-6 * float(want.abs().max())
+    # an infinite x at the end of row 0 reaches only its true neighbours
+    xt[:, ny - 1] = float("inf")
+    got = stencil_spmv(diag, dirs, xt, offsets, (nx, ny))
+    want = spmv_t_plain(diag, dirs, xt, offsets, (nx, ny))
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    with pytest.raises(ValueError, match="at most 32"):
+        stencil_spmv(diag, dirs[:1].expand(33, 3, 3, n).contiguous(), xt,
+                     ((1, 0),) * 33, (nx, ny))
+
+
+@pytest.mark.parametrize("b,block_b", [(130, 128), (300, 256)])
+def test_packed_symv_cm_kernel_matches_plain(cuda, b, block_b):
+    """K2 through packed_symv_cm on a [3,B,32] comp-plane rhs, against its
+    plain version and the dense row-major apply of the unpermuted inverse."""
+    from precond_tpu_torch.ops.cuda.packed_symv import (
+        dense_cm, dense_symv_cm, pack_sym96_cm, packed_symv_cm)
+
+    a = torch.as_tensor(_sym(b, seed=6), device=cuda)
+    rs3 = torch.as_tensor(
+        np.random.default_rng(7).standard_normal((3, b, 32)).astype(np.float32), device=cuda)
+    packed = pack_sym96_cm(a, block_b=block_b)
+    before = _lib.launch_counts["packed_symv96"]
+    got = packed_symv_cm(packed, rs3)
+    assert _lib.launch_counts["packed_symv96"] == before + 1
+    rhs_cm = rs3.permute(1, 0, 2).reshape(b, 96)          # DOF c*32+l
+    want = packed_symv_ref(packed, rhs_cm).reshape(b, 3, 32).permute(1, 0, 2)
+    rows = apply_block_inverse(a, rs3.permute(1, 2, 0).reshape(b, 96))   # DOF l*3+c
+    dense = rows.reshape(b, 32, 3).permute(2, 0, 1)
+    for ref in (want, dense):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    before = _lib.launch_counts["symv96"]
+    got_dense = dense_symv_cm(dense_cm(a), rs3)
+    assert _lib.launch_counts["symv96"] == before + 1
+    np.testing.assert_allclose(got_dense.cpu().numpy(), dense.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         spd_inverse(torch.zeros((2, 96, 96), device=cuda).transpose(1, 2))
@@ -153,3 +239,31 @@ def test_solver_on_card_matches_cpu(cuda):
             z[dev] = pre.apply(r).cpu().numpy()
         scale = np.abs(z["cpu"]).max()
         np.testing.assert_allclose(z["cuda"], z["cpu"], rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("symv,layout", [("packed", "auto"), ("dense", "auto"), ("dense", "rows")])
+def test_grid_path_on_card_matches_cpu(cuda, symv, layout):
+    """The grid path (prepare_grid + crossings + grid apply) on the card
+    against the same code on the CPU, 32x32, rtol 1e-5 / atol 1e-6*max|z|."""
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.gridapply import precondition_grid, precondition_grid_cm
+    from precond_tpu_torch.solver import prepare_grid
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    mesh = cloth.make_grid(32, 32, z_wave=0.02)
+    r = np.random.default_rng(4).standard_normal((mesh.num_verts, 3)).astype(np.float32)
+    cfg = SchwarzConfig(symv_kernel=symv, packed_symv_block_b=128, solve_layout=layout)
+    z = {}
+    for dev in ("cpu", "cuda"):
+        dg, dr, off = cloth.assemble_system_grid(mesh, device=dev)
+        inv = prepare_grid(dg, dr, off, 5, cfg)
+        rt = torch.as_tensor(r, device=dev)
+        if layout == "rows":
+            z[dev] = gm.morton_to_grid(precondition_grid(inv, gm.grid_to_morton(rt, 5), cfg), 5)
+        else:
+            z[dev] = gm.morton_to_grid_cm(
+                precondition_grid_cm(inv, gm.grid_to_morton_cm(rt.T.contiguous(), 5), cfg), 5).T
+        z[dev] = z[dev].cpu().numpy()
+    scale = np.abs(z["cpu"]).max()
+    np.testing.assert_allclose(z["cuda"], z["cpu"], rtol=1e-5, atol=1e-6 * scale)

@@ -647,6 +647,27 @@ def check_packed_symv_table(packed, label: str) -> float:
                       f"{label} inverse Bp={bp}, kernel vs plain")
 
 
+def k2_resources() -> str:
+    """K2's registers and spills from the ptxas log of the build, and its
+    dynamic shared memory per thread block from the source's stage count
+    (the kernel has no static shared memory for ptxas to report)."""
+    import re
+
+    from precond_tpu_torch.ops.cuda import _lib
+
+    log_ = _lib.build_info["log"]
+    at = log_.find("packed_symv96_kernel")
+    lines = log_[at:].splitlines()[1:4] if at >= 0 else []
+    facts = "; ".join(ln.replace("ptxas info    :", "").strip() for ln in lines
+                      if "registers" in ln or "spill" in ln)
+    with open(os.path.join(_lib._CSRC, "packed_symv.cu")) as f:
+        stages = int(re.search(r"constexpr int STAGES = (\d+);", f.read()).group(1))
+    smem = (stages + 4) * 96 * 32 * 4 + (2 * stages + 4) * 8
+    return (f"ptxas: {facts or 'no entry in the build log'}; dynamic shared memory "
+            f"{smem} B per thread block ({stages} F stages + x and dg double-buffered, "
+            f"boxes of 12,288 B, and {2 * stages + 4} mbarriers)")
+
+
 def kernel_packed_symv_cm(run: dict, inv96, launches_by_path: dict, path: str) -> dict:
     """K2 through packed_symv_cm at the comp-major table of `run`, against
     packed_symv_ref on the same table (rhs laid out as packed_symv_cm lays
@@ -677,9 +698,17 @@ def kernel_packed_symv_cm(run: dict, inv96, launches_by_path: dict, path: str) -
     ms = time_ms(lambda: packed_symv_t(packed, xt), warmup=5, iters=50)
     plain_ms = time_ms(lambda: packed_symv_ref(packed, rhs_cm), warmup=1, iters=5)
     lib_ms = time_ms(lambda: torch.bmm(dense, xb), warmup=3, iters=20)
-    bound = bound_ms((48 * 96 + 3 * 96) * 4 * bp, 18432 * bp)
+    nbytes = (48 * 96 + 3 * 96) * 4 * bp
+    bound = bound_ms(nbytes, 18432 * bp)
     log(f"[K2 packed_symv] {path} Bp={bp}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.bmm on the dense table {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    log(f"[K2 packed_symv] {path} Bp={bp}: {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved, "
+        f"{100 * bound[0] / ms:.1f}% of the bound")
+    log(f"[K2 packed_symv] {k2_resources()}")
+    z1, z2 = packed_symv_t(packed, xt), packed_symv_t(packed, xt)
+    same = torch.equal(z1, z2)
+    log(f"[K2 packed_symv] {path} Bp={bp}: two launches bitwise equal={same}")
+    require(same, "K2 is not bitwise repeatable from launch to launch")
     return _record("packed_symv96", "precond_tpu_torch/csrc/packed_symv.cu",
                    "precond_tpu/ops/pallas/packed_symv.py:147", launches_by_path, path,
                    max_abs, ms, plain_ms, bound, lib_ms)

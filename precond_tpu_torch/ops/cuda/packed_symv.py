@@ -16,8 +16,9 @@ cpp:1600-1696). The layout is the JAX package's PackedInverse, per block b:
 
   -> 48*96 + 96 = 4704 floats per block, the reference's exact count.
 
-Batch-minor storage also suits the card: consecutive threads take
-consecutive blocks b, so every load of F is coalesced.
+Batch-minor storage also suits the card: the kernel views F as a
+[4608, Bp] matrix and streams boxes of 32 consecutive blocks b by TMA,
+which needs Bp to be a multiple of 4 (a 16-byte pitch).
 
 The plain version is ``packed_symv_ref`` (unpack to dense, einsum): the
 kernel wrapper takes it for CPU tensors only; for a CUDA tensor it launches
@@ -122,6 +123,13 @@ def packed_symv_t(packed: PackedInverse, xt: torch.Tensor) -> torch.Tensor:
     _lib.check_operand("packed_symv96", f, (HALF, DOF, bp), "f", f.device)
     _lib.check_operand("packed_symv96", dg, (DOF, bp), "dg", f.device)
     _lib.check_operand("packed_symv96", xt, (DOF, bp), "xt", f.device)
+    # the kernel reads F, dg and x by TMA: 16-byte-aligned bases and pitches
+    if bp % 4:
+        raise ValueError(f"packed_symv96: Bp = {bp} must be a multiple of 4 "
+                         "(pack_sym96 pads to its block_b)")
+    for t, what in ((f, "f"), (dg, "dg"), (xt, "xt")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"packed_symv96: {what} must start on a 16-byte boundary")
     z = torch.empty_like(xt)
     _lib.launch("packed_symv96", f.device, f.data_ptr(), dg.data_ptr(), xt.data_ptr(),
                 z.data_ptr(), bp)

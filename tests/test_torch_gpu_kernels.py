@@ -86,7 +86,10 @@ def test_spd_inverse_repair_and_debug(cuda):
     assert not torch.isfinite(spd_inverse(spd, repair=False)[1]).all()
 
 
-@pytest.mark.parametrize("b,block_b", [(64, 64), (256, 128), (130, 128), (300, 256)])
+# B = 1 and 33: fewer 32-block tiles than persistent thread blocks; 5,000:
+# more, the last one ragged; 34,952: the main path's table (Bp = 35,072)
+@pytest.mark.parametrize("b,block_b", [(1, 128), (33, 128), (64, 64), (256, 128), (130, 128),
+                                       (300, 256), (5000, 128), (34952, 256)])
 def test_packed_symv_kernel_matches_plain(cuda, b, block_b):
     a = torch.as_tensor(_sym(b, seed=2), device=cuda)
     rhs = torch.as_tensor(
@@ -100,6 +103,29 @@ def test_packed_symv_kernel_matches_plain(cuda, b, block_b):
     dense = apply_block_inverse(a, rhs)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got.cpu().numpy(), dense.cpu().numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_packed_symv_kernel_bitwise_repeatable(cuda):
+    """Two launches on the same inputs give the same bits (fixed fma order)."""
+    from precond_tpu_torch.ops.cuda.packed_symv import packed_symv_t
+
+    packed = pack_sym96(torch.as_tensor(_sym(5000, seed=8), device=cuda), block_b=128)
+    bp = packed.f.shape[2]
+    xt = torch.as_tensor(np.random.default_rng(9).standard_normal((96, bp)).astype(np.float32),
+                         device=cuda)
+    assert torch.equal(packed_symv_t(packed, xt), packed_symv_t(packed, xt))
+
+
+def test_packed_symv_kernel_rejects_unaligned_bp(cuda):
+    """TMA needs a 16-byte pitch: Bp = 130 raises before any launch."""
+    from precond_tpu_torch.ops.cuda.packed_symv import PackedInverse, packed_symv_t
+
+    f = torch.zeros((48, 96, 130), device=cuda)
+    dg = torch.zeros((96, 130), device=cuda)
+    before = _lib.launch_counts["packed_symv96"]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        packed_symv_t(PackedInverse(f=f, dg=dg, nb=130), torch.zeros((96, 130), device=cuda))
+    assert _lib.launch_counts["packed_symv96"] == before
 
 
 def test_packed_symv_kernel_exactly_symmetric(cuda):
@@ -184,7 +210,8 @@ def test_stencil_spmv_kernel_arbitrary_offsets(cuda):
                      ((1, 0),) * 33, (nx, ny))
 
 
-@pytest.mark.parametrize("b,block_b", [(130, 128), (300, 256)])
+@pytest.mark.parametrize("b,block_b", [(1, 128), (33, 128), (130, 128), (300, 256), (5000, 128),
+                                       (34952, 256)])
 def test_packed_symv_cm_kernel_matches_plain(cuda, b, block_b):
     """K2 through packed_symv_cm on a [3,B,32] comp-plane rhs, against its
     plain version and the dense row-major apply of the unpermuted inverse."""

@@ -204,7 +204,8 @@ def run_general(grid: int, expect_packed: bool, tol: float = 1e-4,
             f"general {grid}: solution not finite or true residual {true_rel:.3e} too large")
     require(isinstance(pre.state.inv96, PackedInverse) == expect_packed,
             f"general {grid}: expected packed={expect_packed}")
-    require(counts["spd_inverse96"] >= 1, f"general {grid}: the inverse kernel never launched")
+    require(counts["spd_inverse96"] == 1,
+            f"general {grid}: the inverse kernel launched {counts['spd_inverse96']} times in one prepare")
     symv_name = "packed_symv96" if expect_packed else "symv96"
     require(counts[symv_name] >= 1, f"general {grid}: the {symv_name} kernel never launched")
 
@@ -334,7 +335,8 @@ def run_cloth(grid: int, expect_packed: bool, tol: float = 1e-4, profile: bool =
     want = PackedInverseCM if expect_packed else DenseInverseCM
     require(isinstance(inv, want), f"{label}: expected a {want.__name__}, got {type(inv).__name__}")
     symv_name = "packed_symv96" if expect_packed else "symv96"
-    require(counts["spd_inverse96"] >= 1, f"{label}: the inverse kernel never launched")
+    require(counts["spd_inverse96"] == 1,
+            f"{label}: the inverse kernel launched {counts['spd_inverse96']} times in one prepare")
     require(counts[symv_name] >= res.iterations,
             f"{label}: {symv_name} launched {counts[symv_name]} times in {res.iterations} iterations")
     require(counts["stencil_spmv"] >= res.iterations,
@@ -418,7 +420,7 @@ def run_grid_solve_step(grid: int, tol: float = 1e-4) -> dict:
         f"true_rel_residual={true_rel:.3e} wall_ms={1e3 * wall:.1f} launches={counts}")
     require(float(res.rel_residual) <= tol and true_rel <= 10 * tol,
             f"{label}: did not converge")
-    require(counts["spd_inverse96"] >= 1 and counts["symv96"] >= res.iterations
+    require(counts["spd_inverse96"] == 1 and counts["symv96"] >= res.iterations
             and counts["stencil_spmv"] >= res.iterations,
             f"{label}: a kernel of the path was not launched every iteration")
     return dict(counts=counts, iters=res.iterations)
@@ -581,7 +583,29 @@ def check_spd_inverse_blocks(h96, label: str) -> float:
     return max_abs
 
 
-def kernel_spd_inverse(h96, launches_by_path: dict, path: str) -> dict:
+def ptxas_facts(kernel: str) -> str:
+    """The registers and spills ptxas reported for `kernel` in the build log."""
+    from precond_tpu_torch.ops.cuda import _lib
+
+    log_ = _lib.build_info["log"]
+    at = log_.find(kernel)
+    lines = log_[at:].splitlines()[1:4] if at >= 0 else []
+    return "; ".join(ln.replace("ptxas info    :", "").strip() for ln in lines
+                     if "registers" in ln or "spill" in ln)
+
+
+def k1_resources() -> str:
+    """K1's registers and spills from the ptxas log of the build, and its
+    dynamic shared memory per block and blocks per SM from the CUDA runtime."""
+    from precond_tpu_torch.ops.cuda.spd_inverse import occupancy
+
+    facts = ptxas_facts("spd_inverse96_kernel")
+    smem, blocks = occupancy()
+    return (f"ptxas: {facts or 'no entry in the build log'}; dynamic shared memory {smem} B "
+            f"per thread block, {blocks} blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+
+
+def kernel_spd_inverse(h96, launches_by_path: dict, path: str, small_h96, small_path: str) -> dict:
     import numpy as np
     import torch
     from precond_tpu_torch.ops.batched_inverse import invert_spd_blocks_panel
@@ -597,6 +621,7 @@ def kernel_spd_inverse(h96, launches_by_path: dict, path: str) -> dict:
                 / invert_spd_blocks_panel(spd).abs().max())
     log(f"[K1 spd_inverse] random SPD B=4096: kernel vs plain rel {err:.2e} (tol 1e-5)")
     require(err < 1e-5, "K1 disagrees on random SPD blocks")
+    del q, spd
 
     # the cond ~1e7 batch of tests/test_pallas_chol.py:30-47, exactly
     srng = np.random.default_rng(1)
@@ -611,17 +636,45 @@ def kernel_spd_inverse(h96, launches_by_path: dict, path: str) -> dict:
     log(f"[K1 spd_inverse] cond~1e7 B=4: rel err vs f64 {rel:.2e} (tol 3e-2) min eig {mineig:.3e} (>0)")
     require(rel < 3e-2 and mineig > 0, "K1 fails the stiff PSD check")
 
-    ms = time_ms(lambda: spd_inverse(h96, repair=False), warmup=1, iters=5)
-    plain_ms = time_ms(lambda: invert_spd_blocks_panel(h96, repair=False), warmup=1, iters=3)
+    # the main-path call repairs inside the kernel (one launch)
+    o1, o2 = spd_inverse(h96), spd_inverse(h96)
+    same = torch.equal(o1, o2)
+    log(f"[K1 spd_inverse] {path} B={bsz}: two launches (repair=True) bitwise equal={same}")
+    require(same, "K1 is not bitwise repeatable from launch to launch")
+    del o1, o2
+
+    ms = time_ms(lambda: spd_inverse(h96), warmup=2, iters=10)
+    ms_no_repair = time_ms(lambda: spd_inverse(h96, repair=False), warmup=2, iters=10)
+    plain_ms = time_ms(lambda: invert_spd_blocks_panel(h96), warmup=1, iters=3)
     lib_ms = time_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky(h96)), warmup=1, iters=2)
+
     # an SPD inverse does ~n^3 flop (Cholesky, triangular inverse and the
     # L^T L product, n^3/3 each), so the bytes bound it
-    bound = bound_ms(2 * bsz * 96 * 96 * 4, bsz * 96 ** 3)
-    log(f"[K1 spd_inverse] {path} B={bsz}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    def k1_bound(b):
+        return bound_ms(2 * b * 96 * 96 * 4, b * 96 ** 3)
+
+    bound = k1_bound(bsz)
+    log(f"[K1 spd_inverse] {path} B={bsz}: kernel {ms:.3f} ms (repair=True, the main-path call), "
+        f"{ms_no_repair:.3f} ms (repair=False); plain {plain_ms:.3f} ms, "
         f"cholesky+cholesky_inverse {lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+    log(f"[K1 spd_inverse] {path} B={bsz}: {100 * bound[0] / ms:.1f}% of the bound (repair=True), "
+        f"{100 * bound[0] / ms_no_repair:.1f}% (repair=False)")
+
+    sb = small_h96.shape[0]
+    check_spd_inverse_blocks(small_h96, small_path)
+    ms_small = time_ms(lambda: spd_inverse(small_h96), warmup=5, iters=50)
+    ms_small_no_repair = time_ms(lambda: spd_inverse(small_h96, repair=False), warmup=5, iters=50)
+    bound_small = k1_bound(sb)
+    log(f"[K1 spd_inverse] {small_path} B={sb}: kernel {ms_small:.4f} ms (repair=True), "
+        f"{ms_small_no_repair:.4f} ms (repair=False), bound {bound_small[0]:.4f} ms "
+        f"({100 * bound_small[0] / ms_small:.1f}%)")
+    log(f"[K1 spd_inverse] {k1_resources()}")
     return _record("spd_inverse96", "precond_tpu_torch/csrc/spd_inverse.cu",
                    "precond_tpu/ops/pallas/chol_inverse.py:193", launches_by_path, path,
-                   max_abs, ms, plain_ms, bound, lib_ms)
+                   max_abs, ms, plain_ms, bound, lib_ms, ms_no_repair=ms_no_repair,
+                   ms_by_path={path: ms, small_path: ms_small},
+                   ms_no_repair_by_path={path: ms_no_repair, small_path: ms_small_no_repair},
+                   bound_ms_by_path={path: bound[0], small_path: bound_small[0]})
 
 
 def _packed_ok(got, plain, label: str) -> float:
@@ -655,11 +708,7 @@ def k2_resources() -> str:
 
     from precond_tpu_torch.ops.cuda import _lib
 
-    log_ = _lib.build_info["log"]
-    at = log_.find("packed_symv96_kernel")
-    lines = log_[at:].splitlines()[1:4] if at >= 0 else []
-    facts = "; ".join(ln.replace("ptxas info    :", "").strip() for ln in lines
-                      if "registers" in ln or "spill" in ln)
+    facts = ptxas_facts("packed_symv96_kernel")
     with open(os.path.join(_lib._CSRC, "packed_symv.cu")) as f:
         stages = int(re.search(r"constexpr int STAGES = (\d+);", f.read()).group(1))
     smem = (stages + 4) * 96 * 32 * 4 + (2 * stages + 4) * 8
@@ -942,8 +991,12 @@ def main(argv=None) -> int:
     from precond_tpu_torch.ops.gridassembly import assemble_grid_hessian
 
     h96 = assemble_grid_hessian(cl["dgr"], cl["drr"], cl["offsets"], cl["k"], cl["cfg"])
+    h96_small = assemble_grid_hessian(cl_dense["dgr"], cl_dense["drr"], cl_dense["offsets"],
+                                      cl_dense["k"], cl_dense["cfg"])
     head = f"cloth {args.cloth}"
-    kernels = [kernel_spd_inverse(h96, by_path("spd_inverse96"), head)]
+    kernels = [kernel_spd_inverse(h96, by_path("spd_inverse96"), head, h96_small,
+                                  f"cloth {args.cloth_dense}")]
+    del h96_small
     kernels.append(kernel_packed_symv_cm(cl, spd_inverse(h96), by_path("packed_symv96"), head))
     del h96
     kernels.append(kernel_symv(cl_dense["inv"].m, by_path("symv96"), f"cloth {args.cloth_dense}"))

@@ -48,11 +48,13 @@ def reset_launch_counts() -> None:
 _VP, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (pointers, sizes, stream); every entry returns cudaError_t
-    "spd_inverse96": (_VP, _VP, _I, _VP),
+    "spd_inverse96": (_VP, _VP, _I, _I, _VP),   # a, out, nb, repair, stream
     "packed_symv96": (_VP, _VP, _VP, _VP, _I, _VP),
     "symv96": (_VP, _VP, _VP, _I, _VP),
     # diag, dirs, x, y, nx, ny, nd, host int[2*nd] offsets, stream
     "stencil_spmv": (_VP, _VP, _VP, _VP, _I, _I, _I, _IP, _VP),
+    # no launch: K1's shared memory per block and blocks per SM (out int*)
+    "spd_inverse96_occupancy": (_IP, _IP),
 }
 
 

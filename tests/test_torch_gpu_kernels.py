@@ -52,7 +52,9 @@ def _sym(b, seed=0):
     return 0.5 * (a + np.swapaxes(a, 1, 2))
 
 
-@pytest.mark.parametrize("b", [1, 5, 300])
+# B = 1 and 5: fewer blocks than the card's resident slots (132 SMs x 5);
+# 300: one partial wave; 4,096: several waves, the last one ragged
+@pytest.mark.parametrize("b", [1, 5, 300, 4096])
 def test_spd_inverse_kernel_matches_plain(cuda, b):
     spd = torch.as_tensor(_spd(b), device=cuda)
     before = _lib.launch_counts["spd_inverse96"]
@@ -84,6 +86,60 @@ def test_spd_inverse_repair_and_debug(cuda):
     repaired = spd_inverse(spd)
     assert torch.equal(repaired[1], torch.eye(96, device=cuda))
     assert not torch.isfinite(spd_inverse(spd, repair=False)[1]).all()
+
+
+def test_spd_inverse_kernel_mixed_padding(cuda):
+    """Random SPD blocks interleaved with the identity-filled padding blocks
+    that assembly emits: each block is inverted on its own."""
+    spd = _spd(64, seed=4)
+    spd[1::3] = np.eye(96, dtype=np.float32)
+    h = torch.as_tensor(spd, device=cuda)
+    got = spd_inverse(h)
+    want = invert_spd_blocks_panel(h)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+    assert torch.equal(got[1::3], torch.eye(96, device=cuda).expand(len(spd[1::3]), 96, 96))
+    ref = np.linalg.inv(spd.astype(np.float64))
+    assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-5
+    assert torch.equal(got, got.transpose(1, 2))
+
+
+@pytest.mark.parametrize("at", [0, 40, 95])
+def test_spd_inverse_kernel_repair_per_panel(cuda, at):
+    """A NaN on the diagonal in each 32-wide panel: repair=True writes the
+    identity in the kernel (one launch, no pass after it), repair=False
+    leaves the block non-finite, and the neighbouring blocks keep their
+    bits either way."""
+    clean = torch.as_tensor(_spd(5, seed=5), device=cuda)
+    bad = clean.clone()
+    bad[2, at, at] = float("nan")
+    base = spd_inverse(clean)
+    before = _lib.launch_counts["spd_inverse96"]
+    repaired = spd_inverse(bad, repair=True)
+    assert _lib.launch_counts["spd_inverse96"] == before + 1
+    raw = spd_inverse(bad, repair=False)
+    assert _lib.launch_counts["spd_inverse96"] == before + 2
+    assert torch.equal(repaired[2], torch.eye(96, device=cuda))
+    assert not torch.isfinite(raw[2]).all()
+    keep = [0, 1, 3, 4]
+    assert torch.equal(repaired[keep], base[keep]) and torch.equal(raw[keep], base[keep])
+    plain = invert_spd_blocks_panel(bad, repair=True)
+    assert torch.equal(plain[2], repaired[2])
+
+
+def test_spd_inverse_kernel_bitwise_repeatable(cuda):
+    """Two launches on the same inputs give the same bits (no atomics, a
+    fixed order of every sum)."""
+    h = torch.as_tensor(_stiff_spd(300, seed=9), device=cuda)
+    assert torch.equal(spd_inverse(h), spd_inverse(h))
+
+
+def test_spd_inverse_kernel_occupancy(cuda):
+    """At most ~56 KB of shared memory per block and at least four blocks per SM."""
+    from precond_tpu_torch.ops.cuda.spd_inverse import occupancy
+
+    smem, blocks = occupancy(cuda)
+    assert smem <= 56 * 1024, smem
+    assert blocks >= 4, blocks
 
 
 # B = 1 and 33: fewer 32-block tiles than persistent thread blocks; 5,000:
@@ -240,6 +296,10 @@ def test_packed_symv_cm_kernel_matches_plain(cuda, b, block_b):
 def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         spd_inverse(torch.zeros((2, 96, 96), device=cuda).transpose(1, 2))
+    before = _lib.launch_counts["spd_inverse96"]
+    with pytest.raises(ValueError, match="16-byte"):   # K1 stages by 16-byte cp.async
+        spd_inverse(torch.zeros(2 * 96 * 96 + 1, device=cuda)[1:].view(2, 96, 96))
+    assert _lib.launch_counts["spd_inverse96"] == before
     with pytest.raises(ValueError, match="float32"):
         batched_symv(torch.zeros((2, 96, 96), device=cuda, dtype=torch.float64),
                      torch.zeros((2, 96), device=cuda, dtype=torch.float64))

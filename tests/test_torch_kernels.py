@@ -115,6 +115,26 @@ def test_repair_nonfinite_matches_jax():
     assert not np.isfinite(out[1]).all() and np.isfinite(out[[0, 2]]).all()
 
 
+@pytest.mark.parametrize("at", [0, 40, 95])
+def test_k1_repair_per_panel_vs_jax(spd5, at):
+    """A NaN on the diagonal in each 32-wide panel: the repaired block is the
+    identity, as in the JAX function; unrepaired it stays non-finite; the
+    other blocks keep their bits (the CUDA kernel repairs in its epilogue
+    and is held to the same in tests/test_torch_gpu_kernels.py)."""
+    spd, clean = spd5
+    bad = spd.copy()
+    bad[1, at, at] = np.nan
+    got = spd_inverse(torch.as_tensor(bad)).numpy()
+    np.testing.assert_array_equal(got[1], np.eye(96, dtype=np.float32))
+    np.testing.assert_array_equal(got[[0, 2, 3, 4]], clean[[0, 2, 3, 4]])
+    want = _np(jbi.invert_spd_blocks_panel(jnp.asarray(bad)))
+    np.testing.assert_array_equal(want[1], np.eye(96, dtype=np.float32))
+    assert _rel(got, want) < 1e-5
+    raw = spd_inverse(torch.as_tensor(bad), repair=False).numpy()
+    assert not np.isfinite(raw[1]).all()
+    np.testing.assert_array_equal(raw[[0, 2, 3, 4]], clean[[0, 2, 3, 4]])
+
+
 # ---- K2: packed symmetric symv -------------------------------------------------
 
 def _random_sym(b, seed=0):

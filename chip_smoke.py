@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (precond_tpu_torch) on one CUDA card.
 
-Drives two main paths of the multilevel additive Schwarz preconditioner
+Drives three main paths of the multilevel additive Schwarz preconditioner
 through the port's entry points — the general-mesh path (allocate ->
-prepare -> PCG) and the structured cloth-grid path (assemble_system_grid /
-assemble_system_stencil -> prepare_grid -> comp-major PCG) — builds every
+prepare -> PCG), the structured cloth-grid path (assemble_system_grid /
+assemble_system_stencil -> prepare_grid -> comp-major PCG) and contact on
+the general path (hash-grid detection -> stencils -> prepare(ell, stencils)
+-> PCG with the contact SpMV) — builds every
 hand-written kernel from ``precond_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version at the main paths' shapes, and checks
 what comes out against references. It prints, in order:
@@ -17,9 +19,14 @@ what comes out against references. It prints, in order:
     cloth 256 (comp-major + dense symv): the same, each against
     block-Jacobi on the same carries and SpMV;
   * grid_solve_step at 256 (row-major + dense);
+  * collide 256 (general M): the JAX bench's folded sheet with VF/EE/EF
+    contact detected on the card, against block-Jacobi and the JAX
+    package's iteration record; set sizes, bitwise repeats of detection,
+    prepare, apply and contact SpMV, timings and profiles;
   * small-input references: a dense solve on a one-bank mesh, the card
-    against the CPU (plain versions) on 32x32 cloths for both paths, and
-    the analytic-hierarchy prepare against prepare_grid;
+    against the CPU (plain versions) on 32x32 cloths for both paths and on
+    a 64x64 fold for the collide path, and the analytic-hierarchy prepare
+    against prepare_grid;
   * per kernel: error against its plain version with the tolerance, and
     kernel / plain / library times (CUDA events) beside the bound;
   * one JSON line of kernel records, the nvidia-smi name/power line, and a
@@ -30,6 +37,7 @@ read just after. Any failed check exits nonzero without the last line.
 Needs a CUDA card and the repository checkout around this file.
 
     python3 chip_smoke.py [--grid 1024] [--dense-grid 256] [--cloth 1024] [--cloth-dense 256]
+                          [--collide 256]
 """
 
 from __future__ import annotations
@@ -58,6 +66,13 @@ JAX_RECORD_ITERS_CLOTH = {1024: (96, 544), 256: (88, 544)}
 # accepted bands around the record: the JAX bench tests convergence every 8
 # iterations, the port every iteration
 CLOTH_BAND = (8, 16)
+# The JAX package's (Schwarz, Jacobi, live stencils) for the collide sheet on
+# the general M at 256 (N = 65,536), from scripts/jax_collide_general_record.py
+# run on the CPU: the bench's recipe solved as ClothSim's general branch does,
+# every iteration tested.
+JAX_RECORD_COLLIDE = {256: (373, 755, 49152)}
+# accepted relative bands (Schwarz, Jacobi) around that record
+COLLIDE_BAND = (0.10, 0.05)
 
 
 class SmokeFailure(RuntimeError):
@@ -426,6 +441,229 @@ def run_grid_solve_step(grid: int, tol: float = 1e-4) -> dict:
     return dict(counts=counts, iters=res.iterations)
 
 
+def folded_sheet(grid: int):
+    """The JAX bench's `collide` sheet (bench.py:220-227): a grid x grid cloth,
+    z_wave 0, mass 1e-3, dt 1/60, the right half folded onto the left at a
+    gap of 0.5 h. Returns (mesh, positions f32[N,3], h)."""
+    import numpy as np
+    from precond_tpu_torch.models import cloth
+
+    mesh = cloth.make_grid(grid, grid, z_wave=0.0, mass=0.001, dt=1.0 / 60.0)
+    h = 1.0 / max(grid - 1, 1)
+    p = np.asarray(mesh.positions).copy()
+    fold = p[:, 0] > 0.5
+    p[:, 2] = np.where(fold, 0.5 * h, 0.0)
+    p[:, 0] = np.where(fold, 1.0 - p[:, 0], p[:, 0])
+    return mesh, p.astype(np.float32), h
+
+
+def detect_collide(pos, faces, edges, h: float):
+    """The bench's detection recipe (bench.py:248-270) on the tensors' device:
+    VF/EE/EF at threshold 0.75 h, stiffness 1e3, a budget of n // 4 per set
+    and a cap of 2, then build_stencils with the valid stencils kept (one
+    host read) and padded to a multiple of 8. Returns (sets, infos, stencils,
+    live count)."""
+    import torch
+    from precond_tpu_torch.models import collision as coll
+    from precond_tpu_torch.ops.stencils import build_stencils
+
+    n = pos.shape[0]
+    kw = dict(threshold=0.75 * h, stiffness=1e3, max_pairs=n // 4)
+    vf, i1 = coll.detect_vf_grid(pos, faces, per_vertex_cap=2, **kw)
+    ee, i2 = coll.detect_ee_grid(pos, edges, per_edge_cap=2, **kw)
+    ef, i3 = coll.detect_ef_grid(pos, edges, faces, per_edge_cap=2, **kw)
+    st = build_stencils(edges, faces, ef=ef, ee=ee, vf=vf)
+    keep = torch.nonzero(st.valid).reshape(-1)
+    live = keep.numel()
+    keep = torch.cat([keep, keep.new_zeros((-live) % 8)])
+    st = type(st)(*(f[keep] for f in st))
+    st.valid[live:] = False
+    return (vf, ee, ef), (i1, i2, i3), st, live
+
+
+def collide_system(pre, ell, st):
+    """The solve's operator in sorted space: the sorted block-ELL, the
+    stencils with ids mapped into sorted space (as ClothSim's general branch
+    maps them, precond_tpu/models/simulator.py:628-633) and their contact
+    slots, built once per prepare."""
+    import torch
+    from precond_tpu_torch.ops.blockcsr import permute
+    from precond_tpu_torch.ops.contact import build_contact_slots
+
+    n = ell.num_verts
+    ells = permute(ell, pre.maps.sorted_to_orig, pre.maps.orig_to_sorted)
+    mapped = st._replace(idx=pre.maps.orig_to_sorted[torch.clamp(st.idx, 0, n - 1).long()])
+    return ells, mapped, build_contact_slots(mapped, n)
+
+
+def collide_h96(pre, ell, st):
+    """The collide prepare's assembled [B,96,96] blocks (K1's input)."""
+    from precond_tpu_torch.ops import hierarchy as hi
+    from precond_tpu_torch.ops.assembly import assemble_banked_hessian
+    from precond_tpu_torch.ops.blockcsr import permute
+    from precond_tpu_torch.ops.stencils import collision_terms, map_stencils, stencil_pairs
+
+    es = permute(ell, pre.maps.sorted_to_orig, pre.maps.orig_to_sorted)
+    mapped = map_stencils(st, pre.maps.orig_to_sorted)
+    hier, mm = hi.build_hierarchy(es.idx, es.mask, pre.cfg_effective, stencil_pairs(mapped),
+                                  with_merge_map=True)
+    return assemble_banked_hessian(es, hier, pre.cfg_effective, collision_terms(mapped),
+                                   merge_map=mm)
+
+
+def run_collide(grid: int, tol: float = 1e-4, profile: bool = False) -> dict:
+    """Contact on the general-mesh path, on the JAX bench's collide sheet:
+    detection on the card -> stencils -> SchwarzPreconditioner(coarse_damping
+    0.25).allocate / prepare(ell, stencils) -> PCG in sorted space on the
+    block-ELL SpMV plus the slot contact SpMV (K1 once per prepare, K3 per
+    apply), against block-Jacobi with the contact diagonal on the same
+    operator."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig, SchwarzPreconditioner
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.apply import precondition_sorted
+    from precond_tpu_torch.ops.blockcsr import spmv as ell_spmv
+    from precond_tpu_torch.ops.contact import contact_diag, slot_contact_spmv
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.parallel.pcg import jacobi_preconditioner, pcg
+
+    label = f"collide {grid}"
+    t0 = time.perf_counter()
+    mesh, folded, h = folded_sheet(grid)
+    n = mesh.num_verts
+    ell = cloth.assemble_system(mesh, positions=folded, device=DEVICE)
+    pos = torch.as_tensor(folded, device=DEVICE)
+    faces = torch.as_tensor(mesh.faces, device=DEVICE)
+    edges = torch.as_tensor(mesh.edges, device=DEVICE)
+    b = torch.as_tensor(
+        np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32), device=DEVICE)
+    torch.cuda.synchronize()
+    cfg = SchwarzConfig(coarse_damping=0.25)
+    log(f"[{label}] N={n} levels={cfg.num_levels(n)} blocks={cfg.num_blocks(n)} "
+        f"packed={cfg.use_packed_symv(n)} K={ell.max_degree} "
+        f"(system built in {time.perf_counter() - t0:.2f} s)")
+
+    # ---- the counted run: detect -> stencils -> allocate -> prepare -> PCG
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    sets, infos, st, live = detect_collide(pos, faces, edges, h)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peaks = [torch.cuda.max_memory_allocated() / 1e9]
+    torch.cuda.reset_peak_memory_stats()
+    pre = SchwarzPreconditioner(cfg, device=DEVICE)
+    pre.allocate(folded)
+    pre.prepare(ell, st)
+    ells, mapped, slots = collide_system(pre, ell, st)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+
+    def spmv(x):
+        return ell_spmv(ells, x) + slot_contact_spmv(mapped, slots, x)
+
+    def apply(r):
+        return precondition_sorted(pre.state, r, pre.cfg_effective)
+
+    bs = b[pre.maps.sorted_to_orig.long()]
+    res = pcg(spmv, apply, bs, tol=tol, max_iters=2000)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = dict(_lib.launch_counts)
+    peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+    peak_gb = max(peaks)
+    log(f"[{label}] launches in the counted run: {counts}")
+
+    nlive = [int((s[0] >= 0).sum()) for s in sets]
+    truncated = [bool(i.truncated) for i in infos]
+    dropped = [int(i.dropped) for i in infos]
+    log(f"[{label}] sets: live VF/EE/EF {nlive[0]}/{nlive[1]}/{nlive[2]}, live stencils {live} "
+        f"(JAX record {JAX_RECORD_COLLIDE[grid][2]}; BASELINE.md:51 ~49k for the JAX static "
+        f"build); truncated {truncated}, dropped {dropped}; stencil slots {st.count}")
+    true_rel = float(torch.linalg.norm(bs - spmv(res.x)) / torch.linalg.norm(bs))
+    log(f"[{label}] schwarz: iters={res.iterations} rel_residual={float(res.rel_residual):.3e} "
+        f"true_rel_residual={true_rel:.3e} detect_ms(first)={1e3 * (t1 - t0):.1f} "
+        f"prepare_ms(first, with slots)={1e3 * (t2 - t1):.1f} solve_ms={1e3 * (t3 - t2):.1f} "
+        f"ms_per_iter={1e3 * (t3 - t2) / max(res.iterations, 1):.3f} peak_mem_gb={peak_gb:.2f} "
+        f"(detection {peaks[0]:.2f}, prepare {peaks[1]:.2f}, PCG {peaks[2]:.2f}; held before "
+        f"the run: {held_gb:.2f})")
+    require(live > 0, f"{label}: no live stencils")
+    require(res.iterations < 2000 and float(res.rel_residual) <= tol,
+            f"{label}: Schwarz PCG did not converge")
+    require(torch.isfinite(res.x).all().item() and true_rel <= 10 * tol,
+            f"{label}: solution not finite or true residual {true_rel:.3e} too large")
+    require(isinstance(pre.state.inv96, torch.Tensor) and not cfg.use_packed_symv(n),
+            f"{label}: expected the dense inverse")
+    require(counts["spd_inverse96"] == 1,
+            f"{label}: the inverse kernel launched {counts['spd_inverse96']} times in one prepare")
+    require(counts["symv96"] >= res.iterations,
+            f"{label}: symv96 launched {counts['symv96']} times in {res.iterations} iterations")
+
+    # ---- block-Jacobi on the same operator, with the contact diagonal
+    t0 = time.perf_counter()
+    jac = pcg(spmv, jacobi_preconditioner(ells.diag + contact_diag(mapped, n)), bs, tol=tol,
+              max_iters=20000)
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t0
+    log(f"[{label}] jacobi: iters={jac.iterations} rel_residual={float(jac.rel_residual):.3e} "
+        f"solve_ms={1e3 * jac_s:.1f} ms_per_iter={1e3 * jac_s / max(jac.iterations, 1):.3f}")
+    require(jac.iterations < 20000 and float(jac.rel_residual) <= tol,
+            f"{label}: Jacobi PCG did not converge")
+    rec_s, rec_j, _ = JAX_RECORD_COLLIDE[grid]
+    band_s, band_j = COLLIDE_BAND
+    log(f"[{label}] iterations schwarz/jacobi: port {res.iterations}/{jac.iterations}, JAX "
+        f"package record {rec_s}/{rec_j} (scripts/jax_collide_general_record.py; bands "
+        f"+-{100 * band_s:.0f}% / +-{100 * band_j:.0f}%)")
+    require(abs(res.iterations - rec_s) <= band_s * rec_s,
+            f"{label}: {res.iterations} Schwarz iterations, outside {rec_s} +- {100 * band_s:.0f}%")
+    require(abs(jac.iterations - rec_j) <= band_j * rec_j,
+            f"{label}: {jac.iterations} Jacobi iterations, outside {rec_j} +- {100 * band_j:.0f}%")
+    require(res.iterations < jac.iterations, f"{label}: Schwarz is not ahead of Jacobi")
+
+    # ---- bitwise repeats: detection (every set field), prepare, apply, contact SpMV
+    sets2, infos2, st2, _ = detect_collide(pos, faces, edges, h)
+    same_detect = same_bits(sets, sets2) and same_bits(infos, infos2) and same_bits(st, st2)
+    pre2 = SchwarzPreconditioner(cfg, device=DEVICE)
+    pre2.allocate(folded)
+    pre2.prepare(ell, st2)
+    same_state = same_bits(pre.state, pre2.state)
+    z = apply(bs)
+    same_apply = torch.equal(z, precondition_sorted(pre2.state, bs, cfg)) and torch.equal(z, apply(bs))
+    _, mapped2, slots2 = collide_system(pre2, ell, st2)
+    yc = slot_contact_spmv(mapped, slots, bs)
+    same_contact = (same_bits(slots, slots2) and torch.equal(yc, slot_contact_spmv(mapped2, slots2, bs))
+                    and torch.equal(yc, slot_contact_spmv(mapped, slots, bs)))
+    log(f"[{label}] bitwise repeat: detection={same_detect} prepare={same_state} "
+        f"apply={same_apply} contact_spmv={same_contact}")
+    require(same_detect and same_state and same_apply and same_contact,
+            f"{label}: detection/prepare/apply/contact SpMV not bit-reproducible")
+    del pre2, sets2, st2, slots2, mapped2
+
+    # ---- steady-state timings of the pieces (outside the counted run)
+    detect_ms = time_ms(lambda: detect_collide(pos, faces, edges, h), warmup=1, iters=3)
+    prepare_ms = time_ms(lambda: pre.prepare(ell, st), warmup=0, iters=3)
+    slots_ms = time_ms(lambda: collide_system(pre, ell, st), warmup=1, iters=3)
+    apply_ms = time_ms(lambda: apply(bs), warmup=2, iters=10)
+    spmv_ms = time_ms(lambda: spmv(bs), warmup=2, iters=10)
+    contact_ms = time_ms(lambda: slot_contact_spmv(mapped, slots, bs), warmup=2, iters=10)
+    iter_ms = time_ms(lambda: pcg(spmv, apply, bs, tol=0.0, max_iters=20), warmup=1, iters=2) / 20
+    log(f"[{label}] steady: detect_ms={detect_ms:.2f} prepare_ms={prepare_ms:.1f} "
+        f"slots_ms={slots_ms:.2f} apply_ms={apply_ms:.3f} spmv_ms={spmv_ms:.3f} "
+        f"(contact part {contact_ms:.3f}) ms_per_iter={iter_ms:.3f} "
+        f"solve_wall_ms={prepare_ms + slots_ms + res.iterations * iter_ms:.1f}")
+    if profile:
+        profile_phase(f"{label} detection", lambda: detect_collide(pos, faces, edges, h), reps=1)
+        profile_phase(f"{label} prepare", lambda: pre.prepare(ell, st), reps=1)
+        profile_phase(f"{label} 20 PCG iterations",
+                      lambda: pcg(spmv, apply, bs, tol=0.0, max_iters=20), reps=1)
+    return dict(grid=grid, n=n, pre=pre, ell=ell, st=st, counts=counts, iters=res.iterations,
+                jacobi_iters=jac.iterations, live=live)
+
+
 # ---------------------------------------------------------------------------
 # small-input references
 # ---------------------------------------------------------------------------
@@ -483,6 +721,52 @@ def check_references() -> None:
         iters[dev] = res.iterations
     log(f"[reference] solve_step 32x32 iterations: cpu {iters['cpu']} card {iters[DEVICE]}")
     require(abs(iters["cpu"] - iters[DEVICE]) <= 2, "solve_step iterations differ card vs CPU")
+
+
+def check_collide_references(grid: int = 64) -> None:
+    """The collide path on a grid x grid fold on the card against the same
+    path on the CPU (plain versions): the stencils as sets, the assembled
+    h96 at check_references' tolerance, and the iteration counts."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig, SchwarzPreconditioner
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.apply import precondition_sorted
+    from precond_tpu_torch.ops.blockcsr import spmv as ell_spmv
+    from precond_tpu_torch.ops.contact import slot_contact_spmv
+    from precond_tpu_torch.parallel.pcg import pcg
+
+    mesh, folded, h = folded_sheet(grid)
+    n = mesh.num_verts
+    b = np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", DEVICE):
+        pos, faces, edges = (torch.as_tensor(a, device=dev) for a in (folded, mesh.faces, mesh.edges))
+        _, _, st, live = detect_collide(pos, faces, edges, h)
+        ell = cloth.assemble_system(mesh, positions=folded, device=dev)
+        pre = SchwarzPreconditioner(SchwarzConfig(coarse_damping=0.25), device=dev)
+        pre.allocate(folded)
+        pre.prepare(ell, st)
+        ells, mapped, slots = collide_system(pre, ell, st)
+        bs = torch.as_tensor(b, device=dev)[pre.maps.sorted_to_orig.long()]
+        res = pcg(lambda x: ell_spmv(ells, x) + slot_contact_spmv(mapped, slots, x),
+                  lambda r: precondition_sorted(pre.state, r, pre.cfg_effective), bs, tol=1e-4,
+                  max_iters=2000)
+        require(float(res.rel_residual) <= 1e-4, f"collide {grid} on {dev} did not converge")
+        rows = torch.cat([st.idx, st.nverts[:, None], st.valid[:, None].to(st.idx.dtype)], dim=1)
+        out[dev] = dict(stencils={tuple(r) for r in rows.cpu().tolist()}, live=live,
+                        h96=collide_h96(pre, ell, st).cpu(), iters=res.iterations)
+    cpu, card = out["cpu"], out[DEVICE]
+    same_sets = cpu["stencils"] == card["stencils"] and cpu["live"] == card["live"]
+    scale = float(cpu["h96"].abs().max())
+    err = float((card["h96"] - cpu["h96"]).abs().max())
+    ok = bool(torch.allclose(card["h96"], cpu["h96"], rtol=1e-5, atol=1e-6 * scale))
+    log(f"[reference] collide {grid}: stencils equal as sets={same_sets} (live {card['live']}); "
+        f"h96 card vs CPU max abs err {err:.2e} (rtol 1e-5, atol 1e-6*max|h| = {1e-6 * scale:.2e}) "
+        f"ok={ok}; iterations cpu {cpu['iters']} card {card['iters']}")
+    require(same_sets, f"collide {grid}: the card's stencils differ from the CPU's")
+    require(ok, f"collide {grid}: the card's h96 disagrees with the CPU's")
+    require(abs(cpu["iters"] - card["iters"]) <= 2, f"collide {grid}: iterations differ card vs CPU")
 
 
 def check_grid_references() -> None:
@@ -670,7 +954,7 @@ def kernel_spd_inverse(h96, launches_by_path: dict, path: str, small_h96, small_
         f"({100 * bound_small[0] / ms_small:.1f}%)")
     log(f"[K1 spd_inverse] {k1_resources()}")
     return _record("spd_inverse96", "precond_tpu_torch/csrc/spd_inverse.cu",
-                   "precond_tpu/ops/pallas/chol_inverse.py:193", launches_by_path, path,
+                   "precond_tpu/ops/pallas/chol_inverse.py:194", launches_by_path, path,
                    max_abs, ms, plain_ms, bound, lib_ms, ms_no_repair=ms_no_repair,
                    ms_by_path={path: ms, small_path: ms_small},
                    ms_no_repair_by_path={path: ms_no_repair, small_path: ms_small_no_repair},
@@ -759,7 +1043,7 @@ def kernel_packed_symv_cm(run: dict, inv96, launches_by_path: dict, path: str) -
     log(f"[K2 packed_symv] {path} Bp={bp}: two launches bitwise equal={same}")
     require(same, "K2 is not bitwise repeatable from launch to launch")
     return _record("packed_symv96", "precond_tpu_torch/csrc/packed_symv.cu",
-                   "precond_tpu/ops/pallas/packed_symv.py:147", launches_by_path, path,
+                   "precond_tpu/ops/pallas/packed_symv.py:148", launches_by_path, path,
                    max_abs, ms, plain_ms, bound, lib_ms)
 
 
@@ -797,7 +1081,7 @@ def kernel_symv(inv96, launches_by_path: dict, path: str) -> dict:
     bound = bound_ms((96 * 96 + 2 * 96) * 4 * bsz, 2 * 96 * 96 * bsz)
     log(f"[K3 symv] {path} B={bsz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.bmm {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
-    return _record("symv96", "precond_tpu_torch/csrc/symv.cu", "precond_tpu/ops/pallas/symv.py:29",
+    return _record("symv96", "precond_tpu_torch/csrc/symv.cu", "precond_tpu/ops/pallas/symv.py:30",
                    launches_by_path, path, max_abs, ms, plain_ms, bound, lib_ms)
 
 
@@ -919,7 +1203,7 @@ def kernel_stencil_spmv(run: dict, launches_by_path: dict, path: str, small: dic
     log(f"[K4 stencil_spmv] {label} N={ss.num_verts}: kernel {ms_small:.4f} ms, "
         f"bound {bound_small[0]:.4f} ms ({bound_small[1]})")
     return _record("stencil_spmv", "precond_tpu_torch/csrc/stencil_spmv.cu",
-                   "precond_tpu/ops/pallas/stencil_spmv.py:48", launches_by_path, path,
+                   "precond_tpu/ops/pallas/stencil_spmv.py:49", launches_by_path, path,
                    max_abs, ms, plain_ms, bound, lib_ms, library_call=lib_note,
                    ms_by_path={path: ms, label: ms_small},
                    bound_ms_by_path={path: bound[0], label: bound_small[0]})
@@ -935,6 +1219,8 @@ def main(argv=None) -> int:
                     help="side of the grid-path cloth (comp-major + packed)")
     ap.add_argument("--cloth-dense", type=int, default=256,
                     help="side of the grid-path cloth (comp-major + dense), and of grid_solve_step")
+    ap.add_argument("--collide", type=int, default=256, choices=sorted(JAX_RECORD_COLLIDE),
+                    help="side of the folded self-colliding sheet on the general path")
     args = ap.parse_args(argv)
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -972,12 +1258,15 @@ def main(argv=None) -> int:
     cl = run_cloth(args.cloth, expect_packed=True, profile=True)
     cl_dense = run_cloth(args.cloth_dense, expect_packed=False, profile=True)
     gss = run_grid_solve_step(args.cloth_dense)
+    col = run_collide(args.collide, profile=True)
     check_references()
     check_grid_references()
+    check_collide_references()
 
     runs = {f"general {args.grid}": big["counts"], f"general {args.dense_grid}": dense["counts"],
             f"cloth {args.cloth}": cl["counts"], f"cloth {args.cloth_dense}": cl_dense["counts"],
-            f"grid_solve_step {args.cloth_dense}": gss["counts"]}
+            f"grid_solve_step {args.cloth_dense}": gss["counts"],
+            f"collide {args.collide}": col["counts"]}
 
     def by_path(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -986,6 +1275,10 @@ def main(argv=None) -> int:
     check_spd_inverse_blocks(main_path_h96(big), f"general {args.grid}")
     check_packed_symv_table(big["pre"].state.inv96, f"general {args.grid}")
     check_symv(dense["pre"].state.inv96, f"general {args.dense_grid}")
+    # the collide path's blocks (contact makes them stiff) and inverse
+    check_spd_inverse_blocks(collide_h96(col["pre"], col["ell"], col["st"]), f"collide {args.collide}")
+    check_symv(col["pre"].state.inv96, f"collide {args.collide}")
+    del col
     # the records: the cloth paths' shapes, with every path's launches
     from precond_tpu_torch.ops.cuda.spd_inverse import spd_inverse
     from precond_tpu_torch.ops.gridassembly import assemble_grid_hessian

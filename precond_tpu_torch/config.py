@@ -3,9 +3,8 @@
 The JAX package's fields that the general-mesh and grid paths read, with
 the same defaults, checks and static level geometry, so a configuration
 means the same hierarchy in both. Fields that select code not ported yet
-are absent rather than silently ignored: the collision budget
-(max_collision_per_vert), bf16 inverse storage (inverse_dtype) and the
-TPU-only kernel switches (use_pallas_symv, pallas_inverse_group, and
+are absent rather than silently ignored: bf16 inverse storage
+(inverse_dtype) and the TPU-only kernel switches (use_pallas_symv, pallas_inverse_group, and
 inverse_kernel="pallas", whose function the "panel" kernel computes).
 The reference hard-codes these as compile-time constants:
   - bank (domain) size 32        -> SeSchwarzPreconditioner.cpp:139
@@ -46,6 +45,10 @@ class SchwarzConfig:
 
     # Morton re-sort cadence in frames (reference: every 17th, cpp:49).
     resort_every: int = 17
+
+    # Collision stencil budget per vertex (reference: 32, cpp:187-188): the
+    # per-vertex / per-edge cap of the hash-grid detectors.
+    max_collision_per_vert: int = 32
 
     # Rounds of C |= C @ C for the in-bank transitive closure; the reachable
     # set doubles per round, so ceil(log2(bank)) is exact.
@@ -120,6 +123,8 @@ class SchwarzConfig:
             raise ValueError(f"coarse_damping={self.coarse_damping}")
         if self.inverse_kernel not in ("panel", "xla"):
             raise ValueError(self.inverse_kernel)
+        if self.max_collision_per_vert < 1:
+            raise ValueError(f"max_collision_per_vert={self.max_collision_per_vert} must be >= 1")
 
     # ---- static level geometry ------------------------------------------
 

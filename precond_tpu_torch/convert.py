@@ -1,7 +1,7 @@
 """Carry the JAX package's state across to the port, as numpy arrays.
 
-The system has no weights; its state is the ELL system, the sort maps and
-the prepared apply state. These converters take that state as numpy arrays
+The system has no weights; its state is the ELL system, the sort maps, the
+collision sets and stencils, and the prepared apply state. These converters take that state as numpy arrays
 (``np.asarray`` of each JAX field) so both packages can be run on the
 identical state.
 """
@@ -16,6 +16,7 @@ from .ops.apply import ApplyState
 from .ops.blockcsr import BlockEll
 from .ops.cuda.packed_symv import DenseInverseCM, PackedInverse, PackedInverseCM
 from .ops.gridstencil import StencilSystem
+from .ops.stencils import EeSets, EfSets, Stencils, VfSets
 from .solver import SortMaps
 
 
@@ -96,3 +97,33 @@ def dense_inverse_cm_from_numpy(m, device=None) -> DenseInverseCM:
     arr = np.asarray(m, np.float32)
     b = arr.shape[-1]
     return DenseInverseCM(m=_t(np.transpose(arr, (4, 0, 1, 2, 3)).reshape(b, 96, 96), dev))
+
+
+def _sets(cls, fields, dev):
+    """A proximity set from numpy fields: ids int32, the rest f32."""
+    return cls(*(_t(f, dev, np.int32 if i < 2 else np.float32) for i, f in enumerate(fields)))
+
+
+def ef_sets_from_numpy(e_id, f_id, stiff, bary, normal, device=None) -> EfSets:
+    """EfSets from the JAX EfSets' fields."""
+    return _sets(EfSets, (e_id, f_id, stiff, bary, normal), resolve_device(device))
+
+
+def ee_sets_from_numpy(e_id0, e_id1, stiff, bary, normal, device=None) -> EeSets:
+    """EeSets from the JAX EeSets' fields."""
+    return _sets(EeSets, (e_id0, e_id1, stiff, bary, normal), resolve_device(device))
+
+
+def vf_sets_from_numpy(v_id, f_id, stiff, bary, normal, device=None) -> VfSets:
+    """VfSets from the JAX VfSets' fields."""
+    return _sets(VfSets, (v_id, f_id, stiff, bary, normal), resolve_device(device))
+
+
+def stencils_from_numpy(idx, weight, nverts, nfirst, stiff, direction, valid,
+                        device=None) -> Stencils:
+    """Stencils from the JAX Stencils' fields."""
+    dev = resolve_device(device)
+    return Stencils(idx=_t(idx, dev, np.int32), weight=_t(weight, dev, np.float32),
+                    nverts=_t(nverts, dev, np.int32), nfirst=_t(nfirst, dev, np.int32),
+                    stiff=_t(stiff, dev, np.float32), direction=_t(direction, dev, np.float32),
+                    valid=_t(valid, dev, bool))

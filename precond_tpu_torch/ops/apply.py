@@ -19,6 +19,7 @@ import torch
 
 from ..config import SchwarzConfig
 from ..utils.gather import take_fill
+from ..utils.scatter import accumulate_rows
 from .cuda.packed_symv import PackedInverse, packed_symv
 from .cuda.symv import batched_symv
 from .hierarchy import BANK
@@ -44,21 +45,6 @@ class ApplyState(NamedTuple):
     restrict_pb: torch.Tensor      # i32[total//32]
 
 
-def _accumulate_rows(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> None:
-    """out[idx] += vals in place, summing duplicates in a fixed order.
-
-    Float index accumulation on the card is atomic (order-dependent) unless
-    PyTorch's deterministic algorithms are on; they are turned on for this
-    call so the result is bit-reproducible.
-    """
-    prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        out.index_put_((idx.long(),), vals, accumulate=True)
-    finally:
-        torch.use_deterministic_algorithms(prev)
-
-
 def restrict_residual_scatter(
     r_sorted: torch.Tensor,
     going_next: torch.Tensor,
@@ -77,7 +63,7 @@ def restrict_residual_scatter(
     mr[:n] = r_sorted
     for l in range(levels - 1):
         seg = slice(offs[l], offs[l + 1])
-        _accumulate_rows(mr, going_next[seg], mr[seg].clone())
+        accumulate_rows(mr, going_next[seg], mr[seg].clone())
     return mr[:total]
 
 

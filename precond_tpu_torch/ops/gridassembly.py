@@ -251,7 +251,8 @@ def assemble_grid_hessian(
     """All domain Hessians f32[B,96,96], on the inputs' device; matches the
     general assemble_banked_hessian on grid meshes."""
     if collisions is not None:
-        raise NotImplementedError("collision terms on the grid path arrive with the contact slice")
+        raise NotImplementedError(
+            "collision terms: contact on the grid path is not ported yet (ROADMAP.md Queue A item 3)")
     n = diag_rows.shape[0]
     offsets = tuple(tuple(int(v) for v in o) for o in offsets)
     pat = grid_pattern(k, offsets, cfg)

@@ -25,8 +25,21 @@ import torch
 
 from ..config import SchwarzConfig
 from ..utils.gather import INT32_MIN, take_fill
+from ..utils.scatter import accumulate_rows
 
 BANK = 32
+
+
+class StencilPairs(NamedTuple):
+    """Cross-primitive vertex pairs of collision stencils, fine sorted space.
+
+    Flattened over stencils x (ita, itb) combos with ita in the first
+    primitive and itb in the second (cpp:534-552). `valid` masks real pairs.
+    """
+
+    a: torch.Tensor      # i32[P]
+    b: torch.Tensor      # i32[P]
+    valid: torch.Tensor  # bool[P]
 
 
 class NeighborMergeMap(NamedTuple):
@@ -69,6 +82,43 @@ def lane_bitmask_rows(ids_col: torch.Tensor, contrib: torch.Tensor) -> torch.Ten
     lane = torch.arange(BANK, dtype=ids_col.dtype, device=ids_col.device)
     hits = ((ids_col % BANK)[..., None] == lane) & contrib[..., None]
     return hits.any(dim=1)  # [rows, 32]
+
+
+def rows_to_bank_adjacency(row_ids: torch.Tensor, rowmask: torch.Tensor,
+                           num_banks: int) -> torch.Tensor:
+    """OR 32-wide lane rows into banked adjacency A[W,32,32].
+
+    row_ids are within-level node indices; as in JAX's ``.at[].add(mode=
+    "drop")`` an id in [-size, -1] wraps and one still outside [0, size)
+    drops. Integer counts, so the order of the adds does not matter.
+    """
+    size = num_banks * BANK
+    rows = row_ids.reshape(-1)
+    rows = torch.where(rows < 0, rows + size, rows)
+    acc = torch.zeros((size, BANK), dtype=torch.int32, device=row_ids.device)
+    accumulate_rows(acc, rows, rowmask.reshape(-1, BANK).to(torch.int32),
+                    torch.ones_like(rows, dtype=torch.bool))
+    return acc.reshape(num_banks, BANK, BANK) > 0
+
+
+def neighbor_warp_masks_to_adjacency(ids_row: torch.Tensor, ids_col: torch.Tensor,
+                                     contrib: torch.Tensor, num_banks: int) -> torch.Tensor:
+    """Pair-list form: put (row, col) pairs that share a bank into
+    A[W,32,32] (used for the collision-pair lists)."""
+    if ids_row.dim() == 1:
+        ids_row, ids_col, contrib = ids_row[:, None], ids_col[:, None], contrib[:, None]
+    rowmask = lane_bitmask_rows(ids_col, contrib)
+    row = torch.where(contrib.any(dim=1), ids_row[:, 0],
+                      torch.full_like(ids_row[:, 0], num_banks * BANK))
+    return rows_to_bank_adjacency(row, rowmask, num_banks)
+
+
+def _pair_adjacency(ca: torch.Tensor, cb: torch.Tensor, valid: torch.Tensor,
+                    num_banks: int) -> torch.Tensor:
+    """Adjacency of the stencil pairs whose two (level) ids share a bank."""
+    psame = (torch.div(ca, BANK, rounding_mode="floor") == torch.div(cb, BANK, rounding_mode="floor")) \
+        & (ca != cb) & valid
+    return neighbor_warp_masks_to_adjacency(ca, cb, psame, num_banks)
 
 
 def transitive_closure_inbank(adj: torch.Tensor, iters: int) -> torch.Tensor:
@@ -133,13 +183,11 @@ def build_hierarchy(
     """Build the full cluster hierarchy from sorted-space adjacency.
 
     nbr_idx/nbr_mask: ELL vertex adjacency in Morton-sorted order, self
-    excluded. Collision-stencil connectivity (`pairs`) arrives with the
-    contact slice; until then it must be None.
+    excluded. pairs: optional collision-stencil connectivity (StencilPairs in
+    sorted space; the reference injects it at every level, cpp:421,433).
 
     with_merge_map=True returns (Hierarchy, NeighborMergeMap).
     """
-    if pairs is not None:
-        raise NotImplementedError("collision-stencil pairs are not ported yet")
     dev = nbr_idx.device
     n = nbr_idx.shape[0]
     levels = cfg.num_levels(n)
@@ -164,6 +212,8 @@ def build_hierarchy(
     if with_merge_map:
         mm_lam = torch.where(same_bank, 0, levels).to(torch.int32)
         mm_lane = (u % BANK).to(torch.int32)
+    if pairs is not None:
+        adj = adj | _pair_adjacency(pairs.a, pairs.b, pairs.valid, w0)
     adj = adj | adj.transpose(1, 2)
 
     cur_ids = vid  # within-level node id of each vertex at the current level
@@ -228,6 +278,9 @@ def build_hierarchy(
             payload = take_fill(red.reshape(-1, BANK), slotl)
         adj = (payload > 0.0).reshape(wl, BANK, BANK)
         remain = remain & ~cross
+        if pairs is not None:
+            adj = adj | _pair_adjacency(cur_ids[pairs.a.long()], cur_ids[pairs.b.long()],
+                                        pairs.valid, wl)
         adj = adj | adj.transpose(1, 2)
 
     hier = Hierarchy(

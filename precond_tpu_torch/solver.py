@@ -7,10 +7,12 @@ Mirrors the reference contract (SeSchwarzPreconditioner.h:56-63):
                             factorization (hand-written inverse kernel)
   Preconditioning        -> apply(): z = M^-1 r (hand-written symv kernel)
 
-The structured 2-D grid prepare (prepare_grid: static assembly over the
-analytic tile order, no sort, permute or hierarchy build) feeds the grid
-apply (ops/gridapply.py). The box prepare and collision stencils arrive
-with later slices of the port.
+Collision stencils (ops/stencils.py) enter the general prepare: their
+cross-primitive pairs join the clustering and their rank-1 Hessian terms
+the banked assembly. The structured 2-D grid prepare (prepare_grid: static
+assembly over the analytic tile order, no sort, permute or hierarchy build)
+feeds the grid apply (ops/gridapply.py). The box prepare and contact on the
+grid path arrive with later slices of the port.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from .ops.gridapply import analytic_hierarchy
 from .ops.gridassembly import assemble_grid_hessian
 from .ops.cuda.packed_symv import dense_cm, pack_sym96, pack_sym96_cm
 from .ops.cuda.spd_inverse import spd_inverse
+from .ops.stencils import Stencils, collision_terms, map_stencils, stencil_pairs
 from .utils import aabb, morton
 
 
@@ -97,19 +100,24 @@ def prepare_with_system(
     ell: BlockEll,
     maps: SortMaps,
     cfg: SchwarzConfig,
-    stencils=None,
+    stencils: Optional[Stencils] = None,
     analytic_hier: bool = False,
 ):
     """prepare_preconditioner that also returns the Morton-sorted system.
 
     Returns (ApplyState, BlockEll): the sorted ELL is the matrix PCG should
     iterate on — solving P H P^T (P x) = P b in sorted space drops the two
-    N-row permutes per iteration that `precondition` pays.
+    N-row permutes per iteration that `precondition` pays. `stencils` carry
+    ORIGINAL vertex ids; the system's contact fill-in is the caller's
+    (ops/contact.py), as in the reference.
     """
-    if stencils is not None:
-        raise NotImplementedError("collision stencils are not ported yet")
     n = ell.num_verts
     ell_sorted = permute(ell, maps.sorted_to_orig, maps.orig_to_sorted)
+    pairs = terms = None
+    if stencils is not None:
+        mapped = map_stencils(stencils, maps.orig_to_sorted)
+        pairs = stencil_pairs(mapped)
+        terms = collision_terms(mapped)
     if analytic_hier:
         # The caller's ordering guarantees single-cluster banks at every
         # level (the analytic tile order): the hierarchy is arithmetic, so
@@ -117,9 +125,9 @@ def prepare_with_system(
         hier, merge_map = analytic_hierarchy(n, cfg, ell.diag.device), None
     else:
         hier, merge_map = hi.build_hierarchy(
-            ell_sorted.idx, ell_sorted.mask, cfg, None, with_merge_map=True
+            ell_sorted.idx, ell_sorted.mask, cfg, pairs, with_merge_map=True
         )
-    h96 = assemble_banked_hessian(ell_sorted, hier, cfg, None, merge_map=merge_map)
+    h96 = assemble_banked_hessian(ell_sorted, hier, cfg, terms, merge_map=merge_map)
     inv96 = _factorize(h96, cfg, n)
     state = ApplyState(
         sorted_to_orig=maps.sorted_to_orig,
@@ -156,7 +164,8 @@ def prepare_grid(
     grids of at least 32x32).
     """
     if stencils is not None or o2s is not None:
-        raise NotImplementedError("collision stencils on the grid path arrive with the contact slice")
+        raise NotImplementedError(
+            "collision stencils: contact on the grid path is not ported yet (ROADMAP.md Queue A item 3)")
     h96 = assemble_grid_hessian(diag_rows, dirs_rows, offsets, k, cfg)
     return _factorize(h96, cfg, diag_rows.shape[0], allow_cm=k >= 5)
 
@@ -165,7 +174,7 @@ def prepare_preconditioner(
     ell: BlockEll,
     maps: SortMaps,
     cfg: SchwarzConfig,
-    stencils=None,
+    stencils: Optional[Stencils] = None,
 ) -> ApplyState:
     """Build hierarchy, assemble banked Hessians, factorize.
 
@@ -203,8 +212,11 @@ class SchwarzPreconditioner:
             self.maps = compute_sort_maps(pos, self.cfg.morton_normalization)
         self.frame_index += 1
 
-    def prepare(self, ell: BlockEll, stencils=None) -> None:
+    def prepare(self, ell: BlockEll, stencils: Optional[Stencils] = None) -> None:
         """Hierarchy + assembly + factorization, with overflow recovery.
+
+        `stencils` (ORIGINAL vertex ids) add contact connectivity and
+        collision Hessian terms to the preconditioner.
 
         If clustering exceeds a level's static capacity the builder clamps
         cluster ids and raises `state.overflow`; rebuild with doubled
@@ -213,6 +225,8 @@ class SchwarzPreconditioner:
         if self.maps is None:
             raise RuntimeError("call allocate() first")
         ell = ell.to(self.device)
+        if stencils is not None:
+            stencils = stencils.to(self.device)
         cfg = self.cfg_effective
         debug = _debug_enabled(self.cfg)
         if debug:

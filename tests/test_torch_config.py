@@ -23,8 +23,7 @@ VARIANTS = [
 
 # JAX fields that select code the port does not carry yet; the port leaves
 # them out so setting one fails loudly instead of doing nothing
-NOT_CARRIED = {"max_collision_per_vert", "inverse_dtype",
-               "use_pallas_symv", "pallas_inverse_group"}
+NOT_CARRIED = {"inverse_dtype", "use_pallas_symv", "pallas_inverse_group"}
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -62,7 +61,9 @@ def test_post_init_rejects_what_jax_rejects(bad):
 
 @pytest.mark.parametrize("bad", [
     {"inverse_kernel": "pallas"}, {"inverse_dtype": "bfloat16"}, {"use_pallas_symv": True},
-    {"pallas_inverse_group": 16}, {"max_collision_per_vert": 16},
+    {"pallas_inverse_group": 16},
+    # carried, but a zero collision budget is refused (JAX takes it silently)
+    {"max_collision_per_vert": 0},
 ])
 def test_options_not_carried_are_refused(bad):
     JaxConfig(**bad)

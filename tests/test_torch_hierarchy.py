@@ -103,11 +103,61 @@ def test_closure_and_cluster_banks_exact():
         np.testing.assert_array_equal(b.numpy(), _np(a))
 
 
+def _random_pairs(n, m, seed):
+    """m stencil-like vertex pairs, a third of them masked off."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, n, m).astype(np.int32)
+    b = np.clip(a + rng.integers(-3 * 32, 3 * 32, m), 0, n - 1).astype(np.int32)
+    return a, b, rng.random(m) < 0.67
+
+
 def test_pairs_not_ported_yet():
+    """Collision-stencil pairs are ported: build_hierarchy(..., pairs) gives
+    JAX's hierarchy and merge map bit for bit, and the pairs change it."""
     idx, mask = _sorted_adjacency(8, 8)
-    with pytest.raises(NotImplementedError):
-        thi.build_hierarchy(torch.as_tensor(idx), torch.as_tensor(mask), TorchConfig(),
-                            pairs=object())
+    a, b, v = _random_pairs(64, 40, 0)
+    jh = jhi.build_hierarchy(jnp.asarray(idx), jnp.asarray(mask), JaxConfig(),
+                             jhi.StencilPairs(jnp.asarray(a), jnp.asarray(b), jnp.asarray(v)))
+    th = thi.build_hierarchy(torch.as_tensor(idx), torch.as_tensor(mask), TorchConfig(),
+                             pairs=thi.StencilPairs(*map(torch.as_tensor, (a, b, v))))
+    for name in jh._fields:
+        np.testing.assert_array_equal(getattr(th, name).numpy(), _np(getattr(jh, name)),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("case,m", [("cloth40", 300), ("cloth64", 2000), ("scrambled", 500),
+                                    ("overflow", 300)])
+def test_build_hierarchy_with_pairs_exact(case, m):
+    spec = CASES[case]
+    idx, mask = _sorted_adjacency(*spec["g"], seed=spec.get("seed"))
+    kw = spec.get("cfg", {})
+    a, b, v = _random_pairs(idx.shape[0], m, 1)
+    jp = jhi.StencilPairs(jnp.asarray(a), jnp.asarray(b), jnp.asarray(v))
+    tp = thi.StencilPairs(*map(torch.as_tensor, (a, b, v)))
+    jh, jm = jhi.build_hierarchy(jnp.asarray(idx), jnp.asarray(mask), JaxConfig(**kw), jp,
+                                 with_merge_map=True)
+    th, tm = thi.build_hierarchy(torch.as_tensor(idx), torch.as_tensor(mask), TorchConfig(**kw),
+                                 tp, with_merge_map=True)
+    for name in jh._fields:
+        np.testing.assert_array_equal(getattr(th, name).numpy(), _np(getattr(jh, name)),
+                                      err_msg=name)
+    for name in jm._fields:
+        np.testing.assert_array_equal(getattr(tm, name).numpy(), _np(getattr(jm, name)),
+                                      err_msg=name)
+    plain = thi.build_hierarchy(torch.as_tensor(idx), torch.as_tensor(mask), TorchConfig(**kw))
+    # contact connectivity merges clusters: never more clusters than without
+    assert (th.level_sizes[1:] <= plain.level_sizes[1:]).all()
+
+
+def test_neighbor_warp_masks_to_adjacency_exact():
+    rng = np.random.default_rng(2)
+    rows = rng.integers(-40, 200, (50, 4)).astype(np.int32)
+    cols = rng.integers(0, 160, (50, 4)).astype(np.int32)
+    contrib = rng.random((50, 4)) < 0.5
+    want = jhi.neighbor_warp_masks_to_adjacency(jnp.asarray(rows), jnp.asarray(cols),
+                                                jnp.asarray(contrib), 5)
+    got = thi.neighbor_warp_masks_to_adjacency(*map(torch.as_tensor, (rows, cols, contrib)), 5)
+    np.testing.assert_array_equal(got.numpy(), _np(want))
 
 
 def test_hierarchy_via_convert_roundtrip():

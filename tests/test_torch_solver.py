@@ -178,3 +178,107 @@ def test_allocate_resorts_on_cadence():
     pre.frame_index = pre.cfg.resort_every
     pre.allocate(mesh.positions)
     assert pre.maps is not maps
+
+
+def _collide(grid):
+    """The JAX bench's collide recipe (bench.py:220-270) at `grid`, through
+    both packages' detection: (jax mesh, positions, jax stencils, port
+    stencils). Valid stencils kept and padded to a multiple of 8."""
+    from precond_tpu.models import collision as jcol
+    from precond_tpu.ops import stencils as jst
+    from precond_tpu_torch.models import collision as tcol
+    from precond_tpu_torch.ops import stencils as tst
+
+    mesh = jcloth.make_grid(grid, grid, z_wave=0.0, mass=1e-3, dt=1.0 / 60.0)
+    n, h = mesh.num_verts, 1.0 / (grid - 1)
+    p = np.asarray(mesh.positions).copy()
+    fold = p[:, 0] > 0.5
+    p[:, 2] = np.where(fold, 0.5 * h, 0.0)
+    p[:, 0] = np.where(fold, 1.0 - p[:, 0], p[:, 0])
+    p = p.astype(np.float32)
+    kw = dict(threshold=0.75 * h, stiffness=1e3, max_pairs=n // 4)
+    pj, fj, ej = jnp.asarray(p), jnp.asarray(mesh.faces), jnp.asarray(mesh.edges)
+    js = jst.build_stencils(ej, fj, ef=jcol.detect_ef_grid(pj, ej, fj, per_edge_cap=2, **kw)[0],
+                            ee=jcol.detect_ee_grid(pj, ej, per_edge_cap=2, **kw)[0],
+                            vf=jcol.detect_vf_grid(pj, fj, per_vertex_cap=2, **kw)[0])
+    pt, ft, et = (torch.as_tensor(a) for a in (p, mesh.faces, mesh.edges))
+    ts = tst.build_stencils(et, ft, ef=tcol.detect_ef_grid(pt, et, ft, per_edge_cap=2, **kw)[0],
+                            ee=tcol.detect_ee_grid(pt, et, per_edge_cap=2, **kw)[0],
+                            vf=tcol.detect_vf_grid(pt, ft, per_vertex_cap=2, **kw)[0])
+    keep = np.flatnonzero(np.asarray(js.valid))
+    np.testing.assert_array_equal(torch.nonzero(ts.valid).reshape(-1).numpy(), keep)
+    keep = np.concatenate([keep, np.zeros((-keep.size) % 8, np.int64)])
+    js = type(js)(*(jnp.asarray(np.asarray(f)[keep]) for f in js))
+    ts = type(ts)(*(f[torch.as_tensor(keep)] for f in ts))
+    live = int(np.asarray(js.valid).sum())
+    js = js._replace(valid=js.valid.at[live:].set(False))
+    ts.valid[live:] = False
+    return mesh, p, js, ts
+
+
+def test_collide_fold_prepare_and_solve_match_jax():
+    """The collide path on a 32x32 fold: stencils (bitwise) into prepare,
+    the apply within 1e-5 of JAX's, PCG on H + H_c in sorted space (block-
+    ELL + slot contact SpMV) within the iteration band of JAX's (block-ELL +
+    stencil contact SpMV), fewer iterations than block-Jacobi, and a
+    bit-reproducible prepare."""
+    from precond_tpu.ops import contact as jct
+    from precond_tpu.ops.apply import precondition_sorted as jprec
+    from precond_tpu.solver import prepare_with_system as jax_prepare
+    from precond_tpu_torch.ops import contact as tct
+    from precond_tpu_torch.ops.apply import precondition_sorted
+    from precond_tpu_torch.ops.stencils import map_stencils
+
+    mesh, p, js, ts = _collide(32)
+    for name, g, w in zip(js._fields, ts, js):
+        w = _np(w)
+        if w.dtype.kind in "iub":
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    n = mesh.num_verts
+    jcfg, cfg = JaxConfig(coarse_damping=0.25), SchwarzConfig(coarse_damping=0.25)
+    maps = jax_sort_maps(jnp.asarray(p))
+    jstate, jells = jax_prepare(jcloth.assemble_system(mesh, positions=p), maps, jcfg, js)
+    tmesh = cloth.make_grid(32, 32, z_wave=0.0, mass=1e-3, dt=1.0 / 60.0)
+    tell = cloth.assemble_system(tmesh, positions=p, device="cpu")
+    pre = SchwarzPreconditioner(cfg, device="cpu")
+    pre.allocate(p)
+    pre.prepare(tell, ts)
+    np.testing.assert_array_equal(pre.state.going_next.numpy(), _np(jstate.going_next))
+
+    r = np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32)
+    rs = r[_np(maps.sorted_to_orig)]
+    zj = _np(jprec(jstate, jnp.asarray(rs), jcfg))
+    zt = precondition_sorted(pre.state, torch.as_tensor(rs), cfg).numpy()
+    # contact makes the blocks stiff (cond ~6e5): each package's f32 inverse
+    # reads ~5e-6 of max against f64, so the applies are held at the JAX
+    # inverse test's 1e-4 of max (tests/test_batched_inverse.py:49)
+    assert np.abs(zt - zj).max() < 1e-4 * np.abs(zj).max()
+
+    jm = js._replace(idx=jnp.take(maps.orig_to_sorted, jnp.clip(js.idx, 0, n - 1)))
+    jres = jpcg.pcg(lambda x: jbc.spmv(jells, x) + jct.stencil_contact_spmv(jm, x),
+                    lambda v: jprec(jstate, v, jcfg), jnp.asarray(rs), tol=1e-4, max_iters=2000)
+    ells = blockcsr.permute(tell, pre.maps.sorted_to_orig, pre.maps.orig_to_sorted)
+    tm = ts._replace(idx=pre.maps.orig_to_sorted[torch.clamp(ts.idx, 0, n - 1).long()])
+    slots = tct.build_contact_slots(tm, n)
+
+    def spmv(x):
+        return blockcsr.spmv(ells, x) + tct.slot_contact_spmv(tm, slots, x)
+
+    tres = pcg.pcg(spmv, lambda v: precondition_sorted(pre.state, v, cfg), torch.as_tensor(rs),
+                   tol=1e-4, max_iters=2000)
+    assert float(jres.rel_residual) <= 1e-4 and float(tres.rel_residual) <= 1e-4
+    assert _band(tres.iterations, int(jres.iterations)), (tres.iterations, int(jres.iterations))
+    jac = pcg.pcg(spmv, pcg.jacobi_preconditioner(ells.diag + tct.contact_diag(tm, n)),
+                  torch.as_tensor(rs), tol=1e-4, max_iters=5000)
+    assert tres.iterations < jac.iterations
+
+    pre2 = SchwarzPreconditioner(cfg, device="cpu")
+    pre2.allocate(p)
+    pre2.prepare(tell, ts)
+    for a, b in zip(pre.state, pre2.state):
+        assert torch.equal(a, b)
+    # prepare_with_system maps the stencils exactly as map_stencils does
+    assert torch.equal(map_stencils(ts, pre.maps.orig_to_sorted).idx,
+                       torch.as_tensor(np.asarray(jnp.where(
+                           js.valid[:, None] & (jnp.arange(5) < js.nverts[:, None]),
+                           jnp.take(maps.orig_to_sorted, jnp.clip(js.idx, 0, n - 1)), 0))))

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (precond_tpu_torch) on one CUDA card.
 
-Drives three main paths of the multilevel additive Schwarz preconditioner
+Drives the main paths of the multilevel additive Schwarz preconditioner
 through the port's entry points — the general-mesh path (allocate ->
 prepare -> PCG), the structured cloth-grid path (assemble_system_grid /
-assemble_system_stencil -> prepare_grid -> comp-major PCG) and contact on
-the general path (hash-grid detection -> stencils -> prepare(ell, stencils)
--> PCG with the contact SpMV) — builds every
+assemble_system_stencil -> prepare_grid -> comp-major PCG), contact on
+the general and the grid paths (hash-grid detection -> stencils ->
+prepare(ell, stencils) or prepare_grid(..., stencils, o2s) -> PCG with the
+contact SpMV), the tet model on the 3-D box and general paths, and the two
+simulators (ClothSim, SoftBodySim) frame by frame — builds every
 hand-written kernel from ``precond_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version at the main paths' shapes, and checks
 what comes out against references. It prints, in order:
@@ -23,12 +25,24 @@ what comes out against references. It prints, in order:
     contact detected on the card, against block-Jacobi and the JAX
     package's iteration record; set sizes, bitwise repeats of detection,
     prepare, apply and contact SpMV, timings and profiles;
+  * collide 256 (grid M): the same sheet on the JAX bench's default build
+    (prepare_grid with the stencils, comp-major PCG with the slot contact
+    SpMV), against block-Jacobi and its JAX record;
+  * the simulators: ClothSim on the folded sheet (3 frames against the JAX
+    ClothSim record, frame 0's positions against the record's, a bitwise
+    repeat of frame 1), 6 ClothSim drape frames at 1024 (comp-major
+    against rows), and SoftBodySim at 16^3 (linear and corotational, 3
+    frames each, card against CPU, K1 and K3 on its last prepare);
+  * tet 64 (the static box path) and tet 48 (the general path): the JAX
+    bench's tet config against block-Jacobi and BASELINE.md's iterations;
   * small-input references: a dense solve on a one-bank mesh, the card
     against the CPU (plain versions) on 32x32 cloths for both paths and on
-    a 64x64 fold for the collide path, and the analytic-hierarchy prepare
-    against prepare_grid;
-  * per kernel: error against its plain version with the tolerance, and
-    kernel / plain / library times (CUDA events) beside the bound;
+    a 64x64 fold for the collide path, the analytic-hierarchy prepare
+    against prepare_grid, and on a 64x64 fold the grid prepare with
+    stencils against the general prepare on the tile maps;
+  * per kernel: error against its plain version with the tolerance on
+    every path's blocks and tables, and kernel / plain / library times
+    (CUDA events) beside the bound;
   * one JSON line of kernel records, the nvidia-smi name/power line, and a
     last JSON line {"ok": true, "device": {...}}.
 
@@ -69,10 +83,30 @@ CLOTH_BAND = (8, 16)
 # The JAX package's (Schwarz, Jacobi, live stencils) for the collide sheet on
 # the general M at 256 (N = 65,536), from scripts/jax_collide_general_record.py
 # run on the CPU: the bench's recipe solved as ClothSim's general branch does,
-# every iteration tested.
-JAX_RECORD_COLLIDE = {256: (373, 755, 49152)}
+# every iteration tested, the detection run op by op (in one chunk) so that its
+# contact sets are the ones the port reproduces bit for bit.
+JAX_RECORD_COLLIDE = {256: (392, 738, 49152)}
 # accepted relative bands (Schwarz, Jacobi) around that record
 COLLIDE_BAND = (0.10, 0.05)
+# The same sheet on the JAX bench's default grid build (BENCH_COLLIDE_M=static:
+# prepare_grid with the stencils, comp-major PCG on spmv_t + the slot contact
+# SpMV), from scripts/jax_collide_grid_record.py on the CPU, every iteration
+# tested: (Schwarz, Jacobi, live stencils). Bands as COLLIDE_BAND.
+JAX_RECORD_COLLIDE_GRID = {256: (372, 746, 49152)}
+# The JAX ClothSim on that sheet as its rest shape (coarse_damping 0.25, a cap
+# of 2, stiffness 1e3, threshold 0.75 h, budget n // 4, cell cap 8), per-frame
+# iterations of its first 3 frames, from scripts/jax_clothsim_record.py on
+# the CPU (op by op), whose frame start positions are in
+# scripts/jax_clothsim_record_256.npz; accepted band +-10% per frame.
+JAX_RECORD_CLOTHSIM = {256: (161, 114, 131)}
+CLOTHSIM_BAND = 0.10
+# The JAX bench's tet config (make_box(side^3, mass 0.05, youngs 5e6), linear):
+# (Schwarz, Jacobi) iterations of BASELINE.md:52-53, tested every 8 iterations
+# there, so the cloth bands apply. 64 rides the static box path, 48 the general.
+JAX_RECORD_ITERS_TET = {64: (88, 256), 48: (88, 280)}
+TET_BOX, TET_GENERAL = 64, 48
+# examples/softbody_drop.py's scene at 16^3, card against CPU
+SOFTBODY = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -664,6 +698,569 @@ def run_collide(grid: int, tol: float = 1e-4, profile: bool = False) -> dict:
                 jacobi_iters=jac.iterations, live=live)
 
 
+def _in_band(label: str, what: str, got: int, rec: int, band: float) -> None:
+    log(f"[{label}] {what}: port {got}, JAX record {rec} (band +-{100 * band:.0f}%)")
+    require(abs(got - rec) <= band * rec, f"{label}: {got} {what}, outside {rec} +- {100 * band:.0f}%")
+
+
+def run_collide_grid(grid: int, tol: float = 1e-4, profile: bool = False) -> dict:
+    """Contact on the grid path: the JAX bench's default collide build
+    (bench.py:210-281, 299-317, 389-414, 570-587, BENCH_COLLIDE_M=static) on
+    the folded sheet: detection on the card -> prepare_grid(..., stencils,
+    o2s) (DenseInverseCM) -> comp-major PCG on spmv_t (K4) plus the slot
+    contact SpMV, with K3 behind the apply and K1 in the prepare; against
+    block-Jacobi with the contact ELL's diagonal on the same operator."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops import gridstencil
+    from precond_tpu_torch.ops.contact import build_contact_ell, build_contact_slots, slot_contact_spmv_t
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.ops.cuda.packed_symv import DenseInverseCM
+    from precond_tpu_torch.ops.gridapply import precondition_grid_cm
+    from precond_tpu_torch.ops.gridassembly import assemble_grid_hessian
+    from precond_tpu_torch.ops.stencils import collision_terms, map_stencils
+    from precond_tpu_torch.parallel.pcg import pcg
+    from precond_tpu_torch.solver import prepare_grid
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    label = f"collide {grid} (grid M)"
+    k = grid.bit_length() - 1
+    t0 = time.perf_counter()
+    mesh, folded, h = folded_sheet(grid)
+    n = mesh.num_verts
+    ell = cloth.assemble_system(mesh, positions=folded, device=DEVICE)
+    ssys = cloth.assemble_system_stencil(mesh, positions=folded, device=DEVICE)
+    dgr, drr, offsets = cloth.assemble_system_grid(mesh, positions=folded, device=DEVICE)
+    o2s = torch.as_tensor(gm.sort_maps(k)[1], device=DEVICE)
+    pos, faces, edges = (torch.as_tensor(a, device=DEVICE) for a in (folded, mesh.faces, mesh.edges))
+    bt = torch.as_tensor(np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32),
+                         device=DEVICE).T.contiguous()
+    torch.cuda.synchronize()
+    cfg = SchwarzConfig(coarse_damping=0.25)
+    log(f"[{label}] N={n} k={k} levels={cfg.num_levels(n)} blocks={cfg.num_blocks(n)} "
+        f"D={len(offsets)} (systems built in {time.perf_counter() - t0:.2f} s)")
+
+    def pre_op_of(inv):
+        return lambda r: gm.morton_to_grid_cm(
+            precondition_grid_cm(inv, gm.grid_to_morton_cm(r, k), cfg), k)
+
+    # ---- the counted run: detect -> stencils -> prepare_grid -> comp-major PCG
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, st, live = detect_collide(pos, faces, edges, h)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    inv = prepare_grid(dgr, drr, offsets, k, cfg, st, o2s)
+    slots = build_contact_slots(st, n)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    def spmv(p):
+        return gridstencil.spmv_t(ssys, p) + slot_contact_spmv_t(slots, p)
+
+    pre_op = pre_op_of(inv)
+    res = pcg(spmv, pre_op, bt, tol=tol, max_iters=2000)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = dict(_lib.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{label}] launches in the counted run: {counts}")
+    true_rel = float(torch.linalg.norm(bt - spmv(res.x)) / torch.linalg.norm(bt))
+    log(f"[{label}] schwarz: iters={res.iterations} rel_residual={float(res.rel_residual):.3e} "
+        f"true_rel_residual={true_rel:.3e} live stencils {live} detect_ms(first)={1e3 * (t1 - t0):.1f} "
+        f"prepare_ms(first, with slots)={1e3 * (t2 - t1):.1f} solve_ms={1e3 * (t3 - t2):.1f} "
+        f"ms_per_iter={1e3 * (t3 - t2) / max(res.iterations, 1):.3f} peak_mem_gb={peak_gb:.2f} "
+        f"(held before the run: {held_gb:.2f})")
+    require(res.iterations < 2000 and float(res.rel_residual) <= tol,
+            f"{label}: Schwarz PCG did not converge")
+    require(torch.isfinite(res.x).all().item() and true_rel <= 10 * tol,
+            f"{label}: solution not finite or true residual {true_rel:.3e} too large")
+    require(isinstance(inv, DenseInverseCM), f"{label}: expected a DenseInverseCM, got {type(inv).__name__}")
+    require(counts["spd_inverse96"] == 1,
+            f"{label}: the inverse kernel launched {counts['spd_inverse96']} times in one prepare")
+    for name in ("symv96", "stencil_spmv"):
+        require(counts[name] >= res.iterations,
+                f"{label}: {name} launched {counts[name]} times in {res.iterations} iterations")
+
+    # ---- block-Jacobi on the same operator, with the contact ELL's diagonal
+    dinv_t = torch.linalg.inv(ell.diag + build_contact_ell(st, n, kc=32).diag).permute(1, 2, 0).contiguous()
+
+    def jac_op(r):
+        return (dinv_t * r[None]).sum(dim=1)
+
+    t0 = time.perf_counter()
+    jac = pcg(spmv, jac_op, bt, tol=tol, max_iters=20000)
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t0
+    log(f"[{label}] jacobi: iters={jac.iterations} rel_residual={float(jac.rel_residual):.3e} "
+        f"solve_ms={1e3 * jac_s:.1f} ms_per_iter={1e3 * jac_s / max(jac.iterations, 1):.3f}")
+    require(jac.iterations < 20000 and float(jac.rel_residual) <= tol,
+            f"{label}: Jacobi PCG did not converge")
+    rec_s, rec_j, rec_live = JAX_RECORD_COLLIDE_GRID[grid]
+    log(f"[{label}] live stencils: port {live}, JAX record {rec_live}")
+    _in_band(label, "Schwarz iterations", res.iterations, rec_s, COLLIDE_BAND[0])
+    _in_band(label, "Jacobi iterations", jac.iterations, rec_j, COLLIDE_BAND[1])
+
+    # ---- bitwise repeats: prepare and apply
+    inv2 = prepare_grid(dgr, drr, offsets, k, cfg, st, o2s)
+    same_state = same_bits(inv, inv2)
+    z = pre_op(bt)
+    same_apply = torch.equal(z, pre_op_of(inv2)(bt)) and torch.equal(z, pre_op(bt))
+    log(f"[{label}] bitwise repeat: prepare={same_state} apply={same_apply}")
+    require(same_state and same_apply, f"{label}: prepare/apply not bit-reproducible")
+    del inv2
+
+    # ---- steady-state timings (outside the counted run)
+    prepare_ms = time_ms(lambda: prepare_grid(dgr, drr, offsets, k, cfg, st, o2s), warmup=1, iters=3)
+    slots_ms = time_ms(lambda: build_contact_slots(st, n), warmup=1, iters=3)
+    apply_ms = time_ms(lambda: pre_op(bt), warmup=2, iters=10)
+    spmv_ms = time_ms(lambda: spmv(bt), warmup=2, iters=10)
+    contact_ms = time_ms(lambda: slot_contact_spmv_t(slots, bt), warmup=2, iters=10)
+    iter_ms = time_ms(lambda: pcg(spmv, pre_op, bt, tol=0.0, max_iters=20), warmup=1, iters=2) / 20
+    jac_iter_ms = time_ms(lambda: pcg(spmv, jac_op, bt, tol=0.0, max_iters=20), warmup=1, iters=2) / 20
+    wall = prepare_ms + slots_ms + res.iterations * iter_ms
+    log(f"[{label}] steady: prepare_ms={prepare_ms:.2f} slots_ms={slots_ms:.2f} apply_ms={apply_ms:.3f} "
+        f"spmv_ms={spmv_ms:.3f} (contact part {contact_ms:.3f}) ms_per_iter={iter_ms:.3f} "
+        f"solve_wall_ms={wall:.1f} against jacobi {jac.iterations} x {jac_iter_ms:.3f} = "
+        f"{jac.iterations * jac_iter_ms:.1f} ms")
+    if profile:
+        profile_phase(f"{label} prepare", lambda: prepare_grid(dgr, drr, offsets, k, cfg, st, o2s), reps=1)
+        profile_phase(f"{label} 20 PCG iterations",
+                      lambda: pcg(spmv, pre_op, bt, tol=0.0, max_iters=20), reps=1)
+    h96 = assemble_grid_hessian(dgr, drr, offsets, k, cfg, collision_terms(map_stencils(st, o2s)))
+    return dict(grid=grid, n=n, counts=counts, iters=res.iterations, jacobi_iters=jac.iterations,
+                live=live, inv=inv, h96=h96, ssys=ssys)
+
+
+def check_collide_grid_reference(grid: int = 64) -> None:
+    """The card's grid prepare with stencils against the card's general
+    prepare on the tile maps (tests/test_gridprep.py:142-183's claim and
+    tolerance): the contacts leave the hierarchy arithmetic, and the two
+    inverses agree."""
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.gridapply import grid_going_next
+    from precond_tpu_torch.solver import SortMaps, prepare_grid, prepare_with_system
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    k = grid.bit_length() - 1
+    mesh, folded, h = folded_sheet(grid)
+    n = mesh.num_verts
+    pos, faces, edges = (torch.as_tensor(a, device=DEVICE) for a in (folded, mesh.faces, mesh.edges))
+    _, _, st, live = detect_collide(pos, faces, edges, h)
+    cfg = SchwarzConfig(coarse_damping=0.25, solve_layout="rows")
+    s2o, o2s = (torch.as_tensor(m, device=DEVICE) for m in gm.sort_maps(k))
+    state, _ = prepare_with_system(cloth.assemble_system(mesh, positions=folded, device=DEVICE),
+                                   SortMaps(s2o, o2s), cfg, st)
+    dg, dr, off = cloth.assemble_system_grid(mesh, positions=folded, device=DEVICE)
+    inv = prepare_grid(dg, dr, off, k, cfg, st, o2s)
+    same_hier = torch.equal(state.going_next, grid_going_next(n, cfg, DEVICE))
+    err = float((state.inv96 - inv).abs().max())
+    ok = bool(torch.allclose(inv, state.inv96, rtol=2e-4, atol=1e-5))
+    log(f"[reference] collide {grid} (grid M): {live} live stencils; general hierarchy on the tile "
+        f"maps arithmetic={same_hier}; prepare_grid(st, o2s) vs prepare_with_system(st) max abs err "
+        f"{err:.2e} (rtol 2e-4, atol 1e-5) ok={ok}")
+    require(same_hier and ok, f"collide {grid}: the grid prepare with stencils disagrees with the general one")
+
+
+class _PhaseClock:
+    """Wall time of named calls inside a simulator frame: each wrapped call
+    synchronizes the card before and after, and its ms are summed per name."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def wrap(self, name: str, fn):
+        import torch
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms[name] = self.ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+
+        return timed
+
+
+def clothsim_starts(grid: int, x0, dt: float, frames: int):
+    """The JAX ClothSim record's start state of each frame: frame 0 starts at
+    rest from x0, frame f from the positions scripts/jax_clothsim_record.py
+    saved (x1, x2, ...) with the velocity (x_f - x_(f-1)) / dt in float32,
+    bit for bit the record's. Returns [(positions, velocities)] as numpy."""
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with np.load(os.path.join(here, "scripts", f"jax_clothsim_record_{grid}.npz")) as z:
+        xs = [np.asarray(x0, np.float32)] + [z[f"x{f}"] for f in range(1, frames)]
+    out = [(xs[0], np.zeros_like(xs[0]))]
+    for f in range(1, frames):
+        out.append((xs[f], (xs[f] - xs[f - 1]) / np.float32(dt)))
+    return out
+
+
+def run_clothsim_collide(grid: int, frames: int = 3) -> dict:
+    """ClothSim on the bench's folded sheet as its rest shape: every frame
+    detects VF/EE/EF on the card, prepares the grid path with the stencils
+    (K1) and solves comp-major (K4, K3 via the dense comp-major apply, the
+    rank-1 stencil contact SpMV), against the JAX ClothSim record.
+
+    The sheet's contacts tie exactly, so which ones a budget keeps is
+    decided by the last bit of each distance: a frame that starts from a
+    state differing in the last bits (another machine's rounding) keeps
+    other contacts and is another system. So the card runs the frames
+    freely (the counted run: timed, printed, converged; its frame 0 starts
+    from the record's own state and is held to the record's x1), and then
+    each frame again from the record's own start state (clothsim_starts),
+    where its detection is the record's bit for bit; those frames are held
+    to the record's iterations."""
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import simulator
+    from precond_tpu_torch.ops.cuda import _lib
+
+    label = f"ClothSim collide {grid}"
+    mesh, folded, h = folded_sheet(grid)
+    n = mesh.num_verts
+    cfg = SchwarzConfig(coarse_damping=0.25, max_collision_per_vert=2)
+    t0 = time.perf_counter()
+    sim = simulator.ClothSim(mesh._replace(positions=folded), cfg, collision_stiffness=1e3,
+                             collision_threshold=0.75 * h, collision_budget=n // 4,
+                             collision_cell_cap=8, max_iters=2000, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[{label}] N={n} built in {time.perf_counter() - t0:.2f} s")
+    clock = _PhaseClock()
+    sim.contact.detect = clock.wrap("detect", sim.contact.detect)
+    prepare_grid = simulator.prepare_grid
+    simulator.prepare_grid = clock.wrap("prepare", prepare_grid)
+    rec = JAX_RECORD_CLOTHSIM[grid]
+    starts = clothsim_starts(grid, folded, mesh.dt, frames)
+    states, iters = [sim.state], []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        for f in range(frames):
+            clock.ms.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = sim.step()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            res, info = sim.last_solve, sim.last_detect_info
+            det, prep = clock.ms.get("detect", 0.0), clock.ms.get("prepare", 0.0)
+            log(f"[{label}] frame {f}: iters={res.iterations} rel_residual={float(res.rel_residual):.3e} "
+                f"detect_ms={det:.1f} prepare_ms={prep:.1f} solve_ms={wall - det - prep:.1f} "
+                f"(frame wall {wall:.1f}) truncated={bool(info.truncated)} dropped={int(info.dropped)} "
+                f"z_mean={float(st.positions[:, 2].mean()):+.5f}")
+            require(float(res.rel_residual) <= 1e-4 and torch.isfinite(st.positions).all().item(),
+                    f"{label}: frame {f} did not converge or is not finite")
+            iters.append(res.iterations)
+            states.append(st)
+    finally:
+        simulator.prepare_grid = prepare_grid
+    counts = dict(_lib.launch_counts)
+    log(f"[{label}] launches over {frames} frames: {counts}; peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    require(counts["spd_inverse96"] == frames, f"{label}: K1 launched {counts['spd_inverse96']} times")
+    for name in ("symv96", "stencil_spmv"):
+        require(counts[name] >= sum(iters), f"{label}: {name} launched {counts[name]} times")
+    # the counted run's frame 0 starts from the record's own state (the
+    # folded sheet at rest): its positions against the record's x1
+    x1 = torch.as_tensor(starts[1][0], device=DEVICE)
+    scale = float(x1.abs().max())
+    err = float((states[1].positions - x1).abs().max())
+    log(f"[{label}] counted frame 0 against the record's x1: max abs diff {err:.3e} "
+        f"(tol 2e-4*max|x| = {2e-4 * scale:.3e})")
+    require(err <= 2e-4 * scale, f"{label}: the counted frame 0 disagrees with the JAX record")
+    # frame 1 again from the same state: bit for bit
+    sim.state = states[1]
+    again = sim.step()
+    same = torch.equal(again.positions, states[2].positions) and sim.last_solve.iterations == iters[1]
+    log(f"[{label}] frame 1 repeated from the same state: bitwise equal={same}")
+    require(same, f"{label}: frame 1 does not repeat bit for bit")
+
+    # each frame from the record's start state, against the record
+    for f, (x, v) in enumerate(starts):
+        sim.state = type(sim.state)(torch.as_tensor(x, device=DEVICE), torch.as_tensor(v, device=DEVICE), f)
+        sim.step()
+        require(float(sim.last_solve.rel_residual) <= 1e-4, f"{label}: frame {f} did not converge")
+        _in_band(label, f"frame {f} iterations from the record's start state",
+                 sim.last_solve.iterations, rec[f], CLOTHSIM_BAND)
+    return dict(counts=counts, iters=iters)
+
+
+def run_clothsim_drape(grid: int, frames: int = 6) -> dict:
+    """`frames` ClothSim frames at the headline width on the grid path,
+    without contact: examples/cloth_drape.py's mesh (mass 0.02, k
+    5e3/5e3/50), the top row pinned. Frame 0 starts at rest under a uniform
+    load and converges in a few iterations; the frames after it swing, and
+    their mean wall is what a drape user pays per frame. The default layout
+    solves comp-major (K4, K2 through packed_symv_cm, K1); solve_layout=
+    "rows" (K4, K2's row entry) must end at the same positions within
+    2e-4 * max|x| (tests/test_simulator.py:122)."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.models.simulator import ClothSim
+    from precond_tpu_torch.ops.cuda import _lib
+
+    label = f"ClothSim {grid}"
+    mesh = cloth.make_grid(grid, grid, mass=0.02, dt=1.0 / 60.0, k_struct=5e3, k_shear=5e3,
+                           k_bend=50.0)
+    pinned = np.arange(grid)
+    out, counts = {}, {}
+    for layout in ("auto", "rows"):
+        t0 = time.perf_counter()
+        sim = ClothSim(mesh, SchwarzConfig(solve_layout=layout), pinned=pinned, device=DEVICE)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        iters, walls = [], []
+        for f in range(frames):
+            t0 = time.perf_counter()
+            st = sim.step()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            res = sim.last_solve
+            require(float(res.rel_residual) <= 1e-4 and torch.isfinite(st.positions).all().item(),
+                    f"{label} {layout}: frame {f} did not converge or is not finite")
+            iters.append(res.iterations)
+        counts[layout] = dict(_lib.launch_counts)
+        swing = walls[1:]
+        log(f"[{label} {layout}] built in {built:.2f} s; {frames} frames: iters={iters} "
+            f"frame_ms={[round(w, 1) for w in walls]}; frames 1-{frames - 1} mean frame_ms="
+            f"{sum(swing) / len(swing):.1f}, ms_per_iter={sum(swing) / sum(iters[1:]):.3f} "
+            f"(with the prepare); peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"launches={counts[layout]}")
+        require(counts[layout]["spd_inverse96"] == frames
+                and counts[layout]["packed_symv96"] >= sum(iters)
+                and counts[layout]["stencil_spmv"] >= sum(iters),
+                f"{label} {layout}: a kernel of the path was not launched every iteration")
+        out[layout] = st.positions
+        del sim
+    scale = float(out["rows"].abs().max())
+    err = float((out["auto"] - out["rows"]).abs().max())
+    log(f"[{label}] comp-major vs rows after {frames} frames: max abs diff {err:.3e} "
+        f"(tol 2e-4*max|x| = {2e-4 * scale:.3e})")
+    require(err <= 2e-4 * scale, f"{label}: the comp-major and row-major frames disagree")
+    return dict(counts=counts["auto"], counts_rows=counts["rows"])
+
+
+def run_tet(side: int, tol: float = 1e-4, profile: bool = False) -> dict:
+    """The JAX bench's tet config (bench.py:121-209): make_box(side^3, mass
+    0.05, youngs 5e6), linear material, rhs from seed 0, tol 1e-4. A
+    power-of-two side rides the static box path (planes_from_ell ->
+    prepare_box -> PCG on boxstencil.spmv with the grid apply between the box
+    crossings: K1, K2's row-major entry); any other side the general path
+    (SchwarzPreconditioner, sorted-space PCG on the block-ELL SpMV: K1, K3).
+    Block-Jacobi runs on the same SpMV."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig, SchwarzPreconditioner
+    from precond_tpu_torch.models import tetmesh
+    from precond_tpu_torch.ops import boxstencil
+    from precond_tpu_torch.ops.apply import precondition_sorted
+    from precond_tpu_torch.ops.blockcsr import permute, spmv as ell_spmv
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.ops.cuda.packed_symv import PackedInverse
+    from precond_tpu_torch.ops.gridapply import precondition_grid
+    from precond_tpu_torch.ops.gridassembly import assemble_box_hessian
+    from precond_tpu_torch.parallel.pcg import jacobi_preconditioner, pcg
+    from precond_tpu_torch.solver import prepare_box
+    from precond_tpu_torch.utils import boxmorton as bm
+
+    dims = (side, side, side)
+    box = bm.supported(*dims)
+    label = f"tet {side} ({'box' if box else 'general'})"
+    t0 = time.perf_counter()
+    mesh = tetmesh.make_box(*dims, mass=0.05, youngs=5e6)
+    t1 = time.perf_counter()
+    ell = tetmesh.assemble_system(mesh, device=DEVICE)
+    n = mesh.num_verts
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32),
+                        device=DEVICE)
+    cfg = SchwarzConfig()
+    if box:
+        bsys = boxstencil.from_ell(ell, dims)
+        dgr, drr = boxstencil.planes_from_ell(ell, dims)
+    torch.cuda.synchronize()
+    log(f"[{label}] N={n} T={len(mesh.tets)} K={ell.max_degree} levels={cfg.num_levels(n)} "
+        f"blocks={cfg.num_blocks(n)} packed={cfg.use_packed_symv(n)} (make_box {t1 - t0:.2f} s, "
+        f"system {time.perf_counter() - t1:.2f} s)")
+
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    if box:
+        inv = prepare_box(dgr, drr, boxstencil.BOX_OFFSETS, dims, cfg)
+
+        def prepare():
+            return prepare_box(dgr, drr, boxstencil.BOX_OFFSETS, dims, cfg)
+
+        def spmv(x):
+            return boxstencil.spmv(bsys, x)
+
+        def pre_op(r):
+            return bm.morton_to_box(precondition_grid(inv, bm.box_to_morton(r, *dims), cfg), *dims)
+
+        bb, jdiag = b, ell.diag
+    else:
+        pre = SchwarzPreconditioner(cfg, device=DEVICE)
+        pre.allocate(mesh.positions)
+        pre.prepare(ell)
+        inv = pre.state.inv96
+
+        def prepare():
+            pre.prepare(ell)
+            return pre.state.inv96
+
+        ells = permute(ell, pre.maps.sorted_to_orig, pre.maps.orig_to_sorted)
+
+        def spmv(x):
+            return ell_spmv(ells, x)
+
+        def pre_op(r):
+            return precondition_sorted(pre.state, r, pre.cfg_effective)
+
+        bb, jdiag = b[pre.maps.sorted_to_orig.long()], ells.diag
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = pcg(spmv, pre_op, bb, tol=tol, max_iters=2000)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = dict(_lib.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{label}] launches in the counted run: {counts}")
+    true_rel = float(torch.linalg.norm(bb - spmv(res.x)) / torch.linalg.norm(bb))
+    log(f"[{label}] schwarz: iters={res.iterations} rel_residual={float(res.rel_residual):.3e} "
+        f"true_rel_residual={true_rel:.3e} prepare_ms(first)={1e3 * (t1 - t0):.1f} "
+        f"solve_ms={1e3 * (t2 - t1):.1f} ms_per_iter={1e3 * (t2 - t1) / max(res.iterations, 1):.3f} "
+        f"peak_mem_gb={peak_gb:.2f}")
+    require(res.iterations < 2000 and float(res.rel_residual) <= tol and true_rel <= 10 * tol
+            and torch.isfinite(res.x).all().item(), f"{label}: Schwarz PCG did not converge")
+    require(isinstance(inv, PackedInverse) == cfg.use_packed_symv(n), f"{label}: unexpected inverse form")
+    symv_name = "packed_symv96" if cfg.use_packed_symv(n) else "symv96"
+    require(counts["spd_inverse96"] == 1 and counts[symv_name] >= res.iterations,
+            f"{label}: K1 once and {symv_name} every iteration expected")
+
+    jac_op = jacobi_preconditioner(jdiag)
+    t0 = time.perf_counter()
+    jac = pcg(spmv, jac_op, bb, tol=tol, max_iters=20000)
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t0
+    log(f"[{label}] jacobi: iters={jac.iterations} rel_residual={float(jac.rel_residual):.3e} "
+        f"solve_ms={1e3 * jac_s:.1f} ms_per_iter={1e3 * jac_s / max(jac.iterations, 1):.3f}")
+    require(float(jac.rel_residual) <= tol, f"{label}: Jacobi PCG did not converge")
+    rec = JAX_RECORD_ITERS_TET[side]
+    log(f"[{label}] iterations schwarz/jacobi: port {res.iterations}/{jac.iterations}, JAX package "
+        f"record {rec[0]}/{rec[1]} (BASELINE.md:52-53; bands +-{CLOTH_BAND[0]} / +-{CLOTH_BAND[1]})")
+    require(abs(res.iterations - rec[0]) <= CLOTH_BAND[0] and abs(jac.iterations - rec[1]) <= CLOTH_BAND[1],
+            f"{label}: iterations {res.iterations}/{jac.iterations} outside {rec} +- {CLOTH_BAND}")
+    same = same_bits(inv, prepare())
+    log(f"[{label}] bitwise repeat: prepare={same}")
+    require(same, f"{label}: prepare not bit-reproducible")
+
+    prepare_ms = time_ms(prepare, warmup=1, iters=2)
+    iter_ms = time_ms(lambda: pcg(spmv, pre_op, bb, tol=0.0, max_iters=20), warmup=1, iters=2) / 20
+    jac_iter_ms = time_ms(lambda: pcg(spmv, jac_op, bb, tol=0.0, max_iters=20), warmup=1, iters=2) / 20
+    spmv_ms = time_ms(lambda: spmv(bb), warmup=2, iters=10)
+    log(f"[{label}] steady: prepare_ms={prepare_ms:.1f} spmv_ms={spmv_ms:.3f} ms_per_iter={iter_ms:.3f} "
+        f"solve_wall_ms={prepare_ms + res.iterations * iter_ms:.1f} against jacobi {jac.iterations} x "
+        f"{jac_iter_ms:.3f} = {jac.iterations * jac_iter_ms:.1f} ms")
+    if profile:
+        profile_phase(f"{label} 20 PCG iterations",
+                      lambda: pcg(spmv, pre_op, bb, tol=0.0, max_iters=20), reps=1)
+    # the prepare's assembled blocks (K1's input)
+    if box:
+        h96 = assemble_box_hessian(dgr, drr, boxstencil.BOX_OFFSETS, dims, cfg)
+    else:
+        h96 = main_path_h96(dict(pre=pre, ell=ell))
+    return dict(counts=counts, iters=res.iterations, jacobi_iters=jac.iterations, inv=inv, h96=h96)
+
+
+class _LastCall:
+    """Wraps fn and keeps the arguments and the result of its last call."""
+
+    def __init__(self, fn):
+        self.fn, self.args, self.out = fn, None, None
+
+    def __call__(self, *args):
+        self.out = self.fn(*args)
+        self.args = args
+        return self.out
+
+
+def run_softbody(side: int = 16, frames: int = 3) -> dict:
+    """SoftBodySim on examples/softbody_drop.py's scene (make_box(side^3, mass
+    0.05, youngs 5e4), the top face pinned): `frames` frames of the linear
+    material (the box path prepared once: K1, K3) and of the corotational
+    one (prepare_box every frame), on the card and on the CPU (plain
+    versions); every frame converges and the two agree within 2e-4 * max|x|.
+    K1 and the apply kernel are held against their plain versions on the
+    card's last prepare: PCG reaches the same x under any SPD
+    preconditioner, so the positions alone would not see a wrong kernel."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import simulator, tetmesh
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.ops.gridassembly import assemble_box_hessian
+
+    mesh = tetmesh.make_box(side, side, side, mass=0.05, youngs=5e4)
+    top = np.flatnonzero(np.arange(mesh.num_verts) % side == side - 1)
+    counts = {}
+    prepare_box = simulator.prepare_box
+    for material in ("linear", "corotational"):
+        label = f"SoftBodySim {side} {material}"
+        pos = {}
+        for dev in ("cpu", DEVICE):
+            last = simulator.prepare_box = _LastCall(prepare_box)
+            try:
+                _lib.reset_launch_counts()
+                t0 = time.perf_counter()
+                sim = simulator.SoftBodySim(mesh, SchwarzConfig(), pinned=top, material=material,
+                                            device=dev)
+                require(sim._box == (side, side, side), f"{label}: not on the box path")
+                its = []
+                for _ in range(frames):
+                    st = sim.step()
+                    require(float(sim.last_solve.rel_residual) <= 1e-4
+                            and torch.isfinite(st.positions).all().item(),
+                            f"{label} on {dev}: a frame did not converge")
+                    its.append(sim.last_solve.iterations)
+                if dev == DEVICE:
+                    torch.cuda.synchronize()
+                    counts[material] = dict(_lib.launch_counts)
+            finally:
+                simulator.prepare_box = prepare_box
+            pos[dev] = st.positions.cpu()
+            log(f"[{label}] {dev}: iterations per frame {its}, {time.perf_counter() - t0:.2f} s "
+                f"with setup, z_mean {float(st.positions[:, 2].mean()):.5f}")
+        # the scene has no contact: the prepare's blocks are the planes' alone
+        require(len(last.args) < 6 or last.args[5] is None, f"{label}: unexpected contact terms")
+        check_spd_inverse_blocks(assemble_box_hessian(*last.args[:5]), f"{label} (last prepare)")
+        if isinstance(last.out, torch.Tensor):
+            check_symv(last.out, f"{label} (last prepare)")
+        else:
+            check_packed_symv_table(last.out, f"{label} (last prepare)")
+        scale = float(pos["cpu"].abs().max())
+        err = float((pos[DEVICE] - pos["cpu"]).abs().max())
+        log(f"[{label}] card vs CPU after {frames} frames: max abs diff {err:.3e} "
+            f"(tol 2e-4*max|x| = {2e-4 * scale:.3e}); launches {counts[material]}")
+        require(err <= 2e-4 * scale, f"{label}: the card and the CPU disagree")
+        require(counts[material]["spd_inverse96"] >= 1 and counts[material]["symv96"] >= frames,
+                f"{label}: K1 / K3 were not launched")
+    return dict(counts=counts["corotational"], counts_linear=counts["linear"])
+
+
 # ---------------------------------------------------------------------------
 # small-input references
 # ---------------------------------------------------------------------------
@@ -1220,7 +1817,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cloth-dense", type=int, default=256,
                     help="side of the grid-path cloth (comp-major + dense), and of grid_solve_step")
     ap.add_argument("--collide", type=int, default=256, choices=sorted(JAX_RECORD_COLLIDE),
-                    help="side of the folded self-colliding sheet on the general path")
+                    help="side of the folded self-colliding sheet (general and grid paths, ClothSim)")
     args = ap.parse_args(argv)
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1259,14 +1856,29 @@ def main(argv=None) -> int:
     cl_dense = run_cloth(args.cloth_dense, expect_packed=False, profile=True)
     gss = run_grid_solve_step(args.cloth_dense)
     col = run_collide(args.collide, profile=True)
+    colg = run_collide_grid(args.collide, profile=True)
+    sim_col = run_clothsim_collide(args.collide)
+    sim_big = run_clothsim_drape(args.cloth)
+    tet_box = run_tet(TET_BOX, profile=True)
+    tet_gen = run_tet(TET_GENERAL, profile=True)
+    soft = run_softbody(SOFTBODY)
     check_references()
     check_grid_references()
     check_collide_references()
+    check_collide_grid_reference()
 
     runs = {f"general {args.grid}": big["counts"], f"general {args.dense_grid}": dense["counts"],
             f"cloth {args.cloth}": cl["counts"], f"cloth {args.cloth_dense}": cl_dense["counts"],
             f"grid_solve_step {args.cloth_dense}": gss["counts"],
-            f"collide {args.collide}": col["counts"]}
+            f"collide {args.collide}": col["counts"],
+            f"collide {args.collide} (grid M)": colg["counts"],
+            f"ClothSim collide {args.collide} (3 frames)": sim_col["counts"],
+            f"ClothSim {args.cloth}": sim_big["counts"],
+            f"ClothSim {args.cloth} rows": sim_big["counts_rows"],
+            f"tet {TET_BOX} (box)": tet_box["counts"],
+            f"tet {TET_GENERAL} (general)": tet_gen["counts"],
+            f"SoftBodySim {SOFTBODY} linear (3 frames)": soft["counts_linear"],
+            f"SoftBodySim {SOFTBODY} corotational (3 frames)": soft["counts"]}
 
     def by_path(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -1279,6 +1891,17 @@ def main(argv=None) -> int:
     check_spd_inverse_blocks(collide_h96(col["pre"], col["ell"], col["st"]), f"collide {args.collide}")
     check_symv(col["pre"].state.inv96, f"collide {args.collide}")
     del col
+    # the new paths' shapes: the grid collide blocks, the tet inverses and planes
+    check_spd_inverse_blocks(colg["h96"], f"collide {args.collide} (grid M)")
+    check_symv(colg["inv"].m, f"collide {args.collide} (grid M) comp-major")
+    ss = colg["ssys"]
+    _k4_check(ss.diag_t, ss.dirs_t, ss.offsets, ss.grid, f"collide {args.collide} (grid M) planes", seed=10)
+    del colg, ss
+    check_spd_inverse_blocks(tet_box["h96"], f"tet {TET_BOX} (box)")
+    check_packed_symv_table(tet_box["inv"], f"tet {TET_BOX} (box)")
+    check_spd_inverse_blocks(tet_gen["h96"], f"tet {TET_GENERAL} (general)")
+    check_symv(tet_gen["inv"], f"tet {TET_GENERAL} (general)")
+    del tet_box, tet_gen
     # the records: the cloth paths' shapes, with every path's launches
     from precond_tpu_torch.ops.cuda.spd_inverse import spd_inverse
     from precond_tpu_torch.ops.gridassembly import assemble_grid_hessian

@@ -1,7 +1,8 @@
 """Carry the JAX package's state across to the port, as numpy arrays.
 
-The system has no weights; its state is the ELL system, the sort maps, the
-collision sets and stencils, and the prepared apply state. These converters take that state as numpy arrays
+The system has no weights; its state is the ELL system (or its grid and box
+stencil forms), the sort maps, the collision sets and stencils, the
+prepared apply state and a simulator's positions and velocities. These converters take that state as numpy arrays
 (``np.asarray`` of each JAX field) so both packages can be run on the
 identical state.
 """
@@ -13,7 +14,9 @@ import torch
 
 from .device import resolve_device
 from .ops.apply import ApplyState
+from .models.simulator import SimState
 from .ops.blockcsr import BlockEll
+from .ops.boxstencil import BoxStencilSystem
 from .ops.cuda.packed_symv import DenseInverseCM, PackedInverse, PackedInverseCM
 from .ops.gridstencil import StencilSystem
 from .ops.stencils import EeSets, EfSets, Stencils, VfSets
@@ -73,6 +76,21 @@ def stencil_system_from_numpy(diag_t, dirs_t, offsets, grid, sym=False,
     dev = resolve_device(device)
     return StencilSystem(_t(diag_t, dev, np.float32), _t(dirs_t, dev, np.float32),
                          offsets, grid, sym=sym)
+
+
+def box_stencil_system_from_numpy(diag_t, dirs_t, offsets, dims, device=None) -> BoxStencilSystem:
+    """BoxStencilSystem from the JAX one's planes (diag_t [3,3,N], dirs_t
+    [D,3,3,N]) and its static offsets and dims."""
+    dev = resolve_device(device)
+    return BoxStencilSystem(_t(diag_t, dev, np.float32), _t(dirs_t, dev, np.float32),
+                            offsets, dims)
+
+
+def sim_state_from_numpy(positions, velocities, step_count=0, device=None) -> SimState:
+    """A simulator's SimState from the JAX one's fields."""
+    dev = resolve_device(device)
+    return SimState(_t(positions, dev, np.float32), _t(velocities, dev, np.float32),
+                    int(step_count))
 
 
 def grid_blocks_from_numpy(diag_rows, dirs_rows, offsets, device=None):

@@ -1,4 +1,5 @@
-"""Scatter-free banked-Hessian assembly for structured power-of-two grids (port of ``precond_tpu/ops/gridassembly.py``, without collisions).
+"""Scatter-free banked-Hessian assembly for structured power-of-two grids
+and boxes (port of ``precond_tpu/ops/gridassembly.py``).
 
 Reference semantics (PrepareHessian cpp:1229-1345 + the level-(λ+1)..top
 diagonal compensation, cpp:1297-1343): a neighbor pair merges at the first
@@ -25,8 +26,10 @@ config), as in the JAX package, and uploaded once per device
 (device_pattern). The JAX
 package's one-hot selector contractions (the fine band product and the
 coarse placement einsum) are a gather and one-hot multiply-adds here, which
-select exactly the same terms. Collision terms arrive with the contact
-slice; the 3-D box pattern with the box slice.
+select exactly the same terms. The same core assembles 3-D tet boxes
+(utils/boxmorton.py). Collision terms ride the same static hierarchy:
+their pair blocks, parent compensations and diagonal chains are placed by
+arithmetic climbs (grid_collision_terms) through utils/scatter.accumulate_rows.
 """
 
 from __future__ import annotations
@@ -40,7 +43,10 @@ import torch.nn.functional as F
 
 from ..config import SchwarzConfig
 from ..device import resolve_device
+from ..utils import boxmorton as bm
 from ..utils import gridmorton as gm
+from ..utils.scatter import accumulate_rows
+from .assembly import BIG_PAIR_THRESHOLD, segment_place9
 from .gridapply import grid_level_sizes
 from .hierarchy import BANK
 
@@ -160,6 +166,16 @@ def grid_pattern(k: int, offsets: Tuple[Tuple[int, int], ...], cfg: SchwarzConfi
     return _pattern_nd((side, side), s2o, o2s, offsets, cfg)
 
 
+@functools.lru_cache(maxsize=8)
+def box_pattern(dims: Tuple[int, int, int], offsets: Tuple[Tuple[int, int, int], ...],
+                cfg: SchwarzConfig) -> GridPattern:
+    """The host pattern of an (nx, ny, nz) tet box, cached per (dims, offsets, cfg)."""
+    if not bm.supported(*dims):
+        raise ValueError(f"no analytic tile order for a {dims} box")
+    s2o, o2s = bm.sort_maps(*dims)
+    return _pattern_nd(tuple(dims), s2o, o2s, offsets, cfg)
+
+
 class _DevicePattern(NamedTuple):
     """What _assemble_core reads of a GridPattern, uploaded once."""
 
@@ -187,13 +203,24 @@ def device_pattern(k: int, offsets: Tuple[Tuple[int, int], ...], cfg: SchwarzCon
                    device=None) -> _DevicePattern:
     """grid_pattern's tensors on `device` (the card unless the caller asks
     for the CPU), uploaded once per (k, offsets, cfg, device)."""
-    return _device_pattern(k, tuple(tuple(int(v) for v in o) for o in offsets), cfg,
-                           str(resolve_device(device)))
+    return _device_pattern(k, _norm_offsets(offsets), cfg, str(resolve_device(device)))
+
+
+def _norm_offsets(offsets) -> tuple:
+    return tuple(tuple(int(v) for v in o) for o in offsets)
 
 
 @functools.lru_cache(maxsize=8)
 def _device_pattern(k: int, offsets, cfg: SchwarzConfig, device: str) -> _DevicePattern:
-    pat = grid_pattern(k, offsets, cfg)
+    return _upload(grid_pattern(k, offsets, cfg), device)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_box_pattern(dims, offsets, cfg: SchwarzConfig, device: str) -> _DevicePattern:
+    return _upload(box_pattern(dims, offsets, cfg), device)
+
+
+def _upload(pat: GridPattern, device: str) -> _DevicePattern:
     return _DevicePattern(
         fine_idx=torch.as_tensor(_fine_index(pat.band), device=device),
         lam=torch.as_tensor(pat.lam, device=device),
@@ -219,6 +246,85 @@ def arith_parent(x: torch.Tensor, cfg: SchwarzConfig, n: int) -> torch.Tensor:
         ok = (x >= offs[l]) & (x < offs[l + 1]) & (j < sizes[l])
         out = torch.where(ok, offs[l + 1] + torch.div(j, BANK, rounding_mode="floor"), out)
     return out
+
+
+def grid_collision_terms(collisions, cfg: SchwarzConfig, n: int):
+    """Collision contributions on the arithmetic grid hierarchy.
+
+    On a tile-ordered grid every bank is already one fully-merged cluster,
+    so stencil-induced connectivity cannot change clustering: the hierarchy
+    stays arithmetic with contacts and only the Hessian entries move —
+    symmetric pair blocks at the first common bank, parent-diagonal
+    compensation one level up (AdditionalSchwarzHessian2, cpp:1164-1199),
+    w^2 diagonals along the full ancestor chain (cpp:1201-1252). All climbs
+    are arithmetic; every float placement is accumulate_rows (invalid
+    entries dropped first), never an atomic add.
+
+    Returns (rows f32[total, 288] of row payloads to add after the static
+    assembly, dg_add f32[n, 3, 3] extra fine diagonals to fold into the
+    diagonal plane before it)."""
+    levels = cfg.num_levels(n)
+    offs = cfg.level_offsets(n)
+    total = offs[-1]
+
+    def bank(x):
+        return torch.div(x, BANK, rounding_mode="floor")
+
+    # climb both pair endpoints to the first common bank (arithmetic)
+    my, ot = collisions.pair_a, collisions.pair_b
+    lam = torch.zeros(my.shape, dtype=torch.int32, device=my.device)
+    for _ in range(levels):
+        step = (bank(my) != bank(ot)) & (lam < levels)
+        my = torch.where(step, arith_parent(my, cfg, n), my)
+        ot = torch.where(step, arith_parent(ot, cfg, n), ot)
+        lam = lam + step.to(torch.int32)
+    okc = (bank(my) == bank(ot)) & (lam < levels) & (my < total) & collisions.pair_valid
+    pm9 = collisions.pair_mat.reshape(-1, 9)
+    # pair blocks in slot space: slot = node*32 + the other node's lane
+    slots = torch.cat([my * BANK + ot % BANK, ot * BANK + my % BANK])
+    pm2, ok2 = torch.cat([pm9, pm9]), torch.cat([okc, okc])
+    diag9 = collisions.diag_mat.reshape(-1, 9)
+
+    if int(collisions.pair_a.shape[0]) > BIG_PAIR_THRESHOLD:
+        # dense segment sums; the parent compensation of the arithmetic
+        # hierarchy is a lane reduce plus a per-level 32-child reshape-sum
+        # (parent(x) = offs[l+1] + (x-offs[l])//32; padded nodes hold zero)
+        hb9 = segment_place9(slots, pm2, ok2, total * BANK)              # [total*32, 9]
+        pairsum = hb9.reshape(total, BANK, 9).sum(dim=1)
+        addl = segment_place9(collisions.diag_ids, diag9, collisions.diag_valid, total)
+        for l in range(levels - 1):
+            red = pairsum[offs[l]: offs[l + 1]].reshape(-1, BANK, 9).sum(dim=1)
+            take = min(red.shape[0], offs[l + 2] - offs[l + 1])
+            addl[offs[l + 1]: offs[l + 1] + take] += red[:take]
+    else:
+        hb9 = pm9.new_zeros((total * BANK, 9))
+        accumulate_rows(hb9, slots, pm2, ok2)
+        # parent diagonal compensation one level further up (cpp:1184-1198);
+        # coinciding parents receive the reference's 2x via both entries
+        pmy = arith_parent(torch.clamp(my, max=total), cfg, n)
+        pot = arith_parent(torch.clamp(ot, max=total), cfg, n)
+        ok_up = okc & (pmy < total)
+        addl = pm9.new_zeros((total, 9))
+        accumulate_rows(addl, torch.cat([collisions.diag_ids, pmy, pot]),
+                        torch.cat([diag9, pm9, pm9]),
+                        torch.cat([collisions.diag_valid, ok_up, ok_up]))
+
+    # coarse-node additional pushed along the full ancestor chain
+    # (cpp:1236-1252); the fine part folds into the diagonal plane
+    coarse_off = offs[1] if levels > 1 else total
+    if coarse_off < total:
+        ids = torch.arange(coarse_off, total, dtype=torch.int64, device=pm9.device)
+        cmat9 = addl[coarse_off:]
+        chain = []
+        for _ in range(levels):
+            chain.append(ids)
+            ids = arith_parent(torch.clamp(ids, max=total), cfg, n)
+        chain = torch.cat(chain)
+        accumulate_rows(hb9, chain * BANK + chain % BANK, cmat9.repeat(levels, 1),
+                        chain < total)
+    # [total*32, 9] slots -> [total, 288] node rows (ci major, then j, cj)
+    rows = hb9.reshape(total, BANK, 3, 3).permute(0, 2, 1, 3).reshape(total, 3 * BANK * 3)
+    return rows, addl[:n].reshape(n, 3, 3)
 
 
 def pin_grid_blocks(diag_rows: torch.Tensor, dirs_rows: torch.Tensor,
@@ -249,29 +355,52 @@ def assemble_grid_hessian(
     collisions=None,
 ) -> torch.Tensor:
     """All domain Hessians f32[B,96,96], on the inputs' device; matches the
-    general assemble_banked_hessian on grid meshes."""
-    if collisions is not None:
-        raise NotImplementedError(
-            "collision terms: contact on the grid path is not ported yet (ROADMAP.md Queue A item 3)")
-    n = diag_rows.shape[0]
-    offsets = tuple(tuple(int(v) for v in o) for o in offsets)
-    pat = grid_pattern(k, offsets, cfg)
+    general assemble_banked_hessian on grid meshes. `collisions`
+    (ops/assembly.CollisionTerms) carry tile-order vertex ids."""
+    offsets = _norm_offsets(offsets)
     dp = device_pattern(k, offsets, cfg, diag_rows.device)
-    # one stacked tile-order buffer [D+1, N, 9] (diagonal first), one gather
+    aa = _stack_sorted(diag_rows, dirs_rows, lambda x: gm.grid_to_morton(x, k))
+    return _assemble_core(aa, grid_pattern(k, offsets, cfg), dp, cfg, collisions)
+
+
+def assemble_box_hessian(
+    diag_rows: torch.Tensor,   # f32[N,3,3] box (row-major) vertex order
+    dirs_rows: torch.Tensor,   # f32[D,N,3,3] box order, per direction
+    offsets: Tuple[Tuple[int, int, int], ...],
+    dims: Tuple[int, int, int],
+    cfg: SchwarzConfig,
+    collisions=None,
+) -> torch.Tensor:
+    """3-D twin of assemble_grid_hessian for tet boxes (utils/boxmorton.py);
+    matches the general assembly on box meshes."""
+    offsets, dims = _norm_offsets(offsets), tuple(int(v) for v in dims)
+    dp = _device_box_pattern(dims, offsets, cfg, str(diag_rows.device))
+    aa = _stack_sorted(diag_rows, dirs_rows, lambda x: bm.box_to_morton(x, *dims))
+    return _assemble_core(aa, box_pattern(dims, offsets, cfg), dp, cfg, collisions)
+
+
+def _stack_sorted(diag_rows, dirs_rows, to_sorted) -> torch.Tensor:
+    """One stacked tile-order buffer [D+1, N, 9] (diagonal first), one gather."""
+    n = diag_rows.shape[0]
     aa = torch.cat([diag_rows.reshape(1, n, 9), dirs_rows.reshape(-1, n, 9)], dim=0)
-    aa = gm.grid_to_morton(aa.permute(1, 0, 2), k).permute(1, 0, 2).contiguous()
-    return _assemble_core(aa, pat, dp, cfg)
+    return to_sorted(aa.permute(1, 0, 2)).permute(1, 0, 2).contiguous()
 
 
 def _assemble_core(aa: torch.Tensor, pat: GridPattern, dp: _DevicePattern,
-                   cfg: SchwarzConfig) -> torch.Tensor:
+                   cfg: SchwarzConfig, collisions=None) -> torch.Tensor:
     """Static assembly from tile-order blocks aa [D+1, N, 9] (the diagonal
-    first, then one plane per direction)."""
+    first, then one plane per direction), plus the collision terms."""
     n = aa.shape[1]
     levels = cfg.num_levels(n)
     caps = cfg.level_capacities(n)
     D = aa.shape[0] - 1
     B0 = n // BANK
+    crows = None
+    if collisions is not None:
+        # the extra fine diagonals join the diagonal plane before both the
+        # fine gather and the coarse chains read it
+        crows, dg_add = grid_collision_terms(collisions, cfg, n)
+        aa[0] += dg_add.reshape(n, 9)
     dg, A = aa[0], aa[1:]
 
     # ---- fine level: one gather over (direction, lane) ---------------------
@@ -315,6 +444,8 @@ def _assemble_core(aa: torch.Tensor, pat: GridPattern, dp: _DevicePattern,
         hm.zero_()
         hm.view(-1, 3, BANK, 3)[:s_m] = rows.reshape(s_m, 3, 3, BANK).permute(0, 1, 3, 2)
         off += caps[m] // BANK
+    if crows is not None:
+        h96 += crows.view(-1, 3 * BANK, 3 * BANK)
     # identity fill of padded node rows (in place on the diagonal)
     h96.diagonal(dim1=1, dim2=2).add_(dp.fill)
     return h96

@@ -1,4 +1,4 @@
-"""High-level 3-phase preconditioner API (port of ``precond_tpu/solver.py``, general path).
+"""High-level 3-phase preconditioner API (port of ``precond_tpu/solver.py``).
 
 Mirrors the reference contract (SeSchwarzPreconditioner.h:56-63):
   AllocatePrecoditioner  -> allocate(): the Morton sort maps (re-sorted on
@@ -11,8 +11,8 @@ Collision stencils (ops/stencils.py) enter the general prepare: their
 cross-primitive pairs join the clustering and their rank-1 Hessian terms
 the banked assembly. The structured 2-D grid prepare (prepare_grid: static
 assembly over the analytic tile order, no sort, permute or hierarchy build)
-feeds the grid apply (ops/gridapply.py). The box prepare and contact on the
-grid path arrive with later slices of the port.
+feeds the grid apply (ops/gridapply.py); prepare_box is its 3-D twin for
+tet boxes. Both take collision stencils with the sort map into tile order.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from .ops.assembly import assemble_banked_hessian
 from .ops.batched_inverse import invert_spd_blocks
 from .ops.blockcsr import BlockEll, permute
 from .ops.gridapply import analytic_hierarchy
-from .ops.gridassembly import assemble_grid_hessian
+from .ops.gridassembly import assemble_box_hessian, assemble_grid_hessian
 from .ops.cuda.packed_symv import dense_cm, pack_sym96, pack_sym96_cm
 from .ops.cuda.spd_inverse import spd_inverse
 from .ops.stencils import Stencils, collision_terms, map_stencils, stencil_pairs
@@ -143,14 +143,49 @@ def prepare_with_system(
     return state, ell_sorted
 
 
+def _grid_terms(stencils, o2s, n: int, what: str):
+    """Collision terms of stencils carrying ORIGINAL (grid/box) vertex ids,
+    mapped into tile order through o2s (JAX ``solver.py:244-255``)."""
+    if stencils is None:
+        return None
+    if o2s is None:
+        raise ValueError(f"pass the {what}->tile map o2s with stencils")
+    o2s = torch.as_tensor(o2s, device=stencils.idx.device)
+    if o2s.shape[0] != n:
+        raise ValueError(f"o2s has {o2s.shape[0]} entries for {n} vertices")
+    return collision_terms(map_stencils(stencils, o2s))
+
+
+def prepare_box(
+    diag_rows: torch.Tensor,   # f32[N,3,3] box (row-major) vertex order
+    dirs_rows: torch.Tensor,   # f32[D,N,3,3] box order
+    offsets,                   # tuple of (di, dj, dk), one per plane of dirs_rows
+    dims,                      # (nx, ny, nz)
+    cfg: SchwarzConfig,
+    stencils: Optional[Stencils] = None,  # ORIGINAL (box) vertex ids
+    o2s=None,                             # box->tile map (required with stencils)
+):
+    """3-D twin of prepare_grid for tet boxes: static assembly over the
+    analytic box ordering (utils/boxmorton.py) + factorization -> inverses.
+    Apply with ops.gridapply.precondition_grid on box_to_morton vectors.
+
+    Collision stencils ride the same static hierarchy as on 2-D grids
+    (every box bank is one fully-merged cluster, so contact connectivity is
+    absorbed); their Hessian terms enter via arithmetic climbs. The box
+    path keeps the row-major layout."""
+    terms = _grid_terms(stencils, o2s, diag_rows.shape[0], "box")
+    h96 = assemble_box_hessian(diag_rows, dirs_rows, offsets, dims, cfg, terms)
+    return _factorize(h96, cfg, diag_rows.shape[0])
+
+
 def prepare_grid(
     diag_rows: torch.Tensor,   # f32[N,3,3] grid vertex order
     dirs_rows: torch.Tensor,   # f32[D,N,3,3] grid order
     offsets,                   # tuple of (di, dj), one per plane of dirs_rows
     k: int,                    # the grid is 2^k x 2^k
     cfg: SchwarzConfig,
-    stencils=None,
-    o2s=None,
+    stencils: Optional[Stencils] = None,  # ORIGINAL (grid) vertex ids
+    o2s=None,                             # grid->tile map (required with stencils)
 ):
     """Structured-grid prepare: static assembly + factorization -> inverses.
 
@@ -162,11 +197,14 @@ def prepare_grid(
     with ops.gridapply.precondition_grid (dense / PackedInverse) or
     precondition_grid_cm (the comp-major forms, chosen by cfg.use_cm on
     grids of at least 32x32).
+
+    Collision stencils do not change clustering here (every grid bank is
+    already one fully-merged cluster), so contacts ride the same static
+    hierarchy: their Hessian terms are added by arithmetic climbs
+    (ops/gridassembly.grid_collision_terms).
     """
-    if stencils is not None or o2s is not None:
-        raise NotImplementedError(
-            "collision stencils: contact on the grid path is not ported yet (ROADMAP.md Queue A item 3)")
-    h96 = assemble_grid_hessian(diag_rows, dirs_rows, offsets, k, cfg)
+    terms = _grid_terms(stencils, o2s, diag_rows.shape[0], "grid")
+    h96 = assemble_grid_hessian(diag_rows, dirs_rows, offsets, k, cfg, terms)
     return _factorize(h96, cfg, diag_rows.shape[0], allow_cm=k >= 5)
 
 

@@ -4,8 +4,9 @@
 Builds the JAX bench's `collide` sheet (bench.py:220-270: a grid x grid
 cloth, z_wave 0, mass 1e-3, dt 1/60, the right half folded onto the left at
 a gap of 0.5 h; VF/EE/EF detection at threshold 0.75 h, stiffness 1e3, a
-budget of n // 4 per set and a cap of 2; the valid stencils kept and padded
-to a multiple of 8), then solves it the way ClothSim's general branch does
+budget of n // 4 per set and a cap of 2, every query in one chunk so the
+detection runs op by op; the valid stencils kept and padded to a multiple
+of 8), then solves it the way ClothSim's general branch does
 (precond_tpu/models/simulator.py:530, 622-645): the position Morton sort,
 prepare_with_system with the stencils (contact pairs in the clustering,
 collision terms in the assembly), and PCG in sorted space on the block-ELL
@@ -67,9 +68,15 @@ def main(argv=None) -> int:
     thresh, stiff, budget, cap = 0.75 * h, 1e3, n // 4, 2
     pj = jnp.asarray(positions)
     fj, ej = jnp.asarray(mesh.faces), jnp.asarray(mesh.edges)
-    vf, i1 = coll.detect_vf_grid(pj, fj, thresh, stiff, budget, per_vertex_cap=cap)
-    ee, i2 = coll.detect_ee_grid(pj, ej, thresh, stiff, budget, per_edge_cap=cap)
-    ef, i3 = coll.detect_ef_grid(pj, ej, fj, thresh, stiff, budget, per_edge_cap=cap)
+    # One chunk of queries: above `chunk` queries detect_*_grid compile their
+    # body as a lax.map, and XLA rounds that compiled body differently from
+    # the same ops called one by one. The fold's contacts tie exactly, so the
+    # last bit decides which ones a budget keeps; op by op, the sets are the
+    # ones the PyTorch port reproduces bit for bit.
+    chunk = max(n, len(mesh.edges))
+    vf, i1 = coll.detect_vf_grid(pj, fj, thresh, stiff, budget, per_vertex_cap=cap, chunk=chunk)
+    ee, i2 = coll.detect_ee_grid(pj, ej, thresh, stiff, budget, per_edge_cap=cap, chunk=chunk)
+    ef, i3 = coll.detect_ef_grid(pj, ej, fj, thresh, stiff, budget, per_edge_cap=cap, chunk=chunk)
     live = {"vf": int((np.asarray(vf.v_id) >= 0).sum()),
             "ee": int((np.asarray(ee.e_id0) >= 0).sum()),
             "ef": int((np.asarray(ef.e_id) >= 0).sum())}

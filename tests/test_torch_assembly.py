@@ -147,7 +147,7 @@ def test_collision_placements_agree():
     np.testing.assert_array_equal(out[:, 0].numpy(), np.float32([2e6, 3.6, 2.5, 0.0, 0.0, 7.0]))
 
 
-def test_collisions_not_ported_yet():
+def test_small_collision_set_matches_jax():
     """Collision terms are ported: a small set goes through the assembly and
     lands where the JAX package puts it."""
     es, tes, js, ts = _collision_inputs(8, 6, seed=1)

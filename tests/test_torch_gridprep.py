@@ -195,12 +195,22 @@ def test_forced_cm_on_general_prepare_warns(g=32):
     assert isinstance(inv, torch.Tensor)
 
 
-def test_contact_arguments_refused(g=32):
+def test_stencils_without_o2s_refused(g=32):
+    """prepare_grid and prepare_box take stencils only with the sort map
+    into tile order (JAX asserts it, solver.py:135,246; the port raises)."""
+    from precond_tpu_torch.models import tetmesh
+    from precond_tpu_torch.ops import boxstencil
+    from precond_tpu_torch.ops.stencils import empty_stencils
+    from precond_tpu_torch.solver import prepare_box
+
     _, (tdg, tdr, off) = _grid_blocks(g)
-    with pytest.raises(NotImplementedError, match="contact"):
-        prepare_grid(tdg, tdr, off, 5, SchwarzConfig(), stencils=object())
-    with pytest.raises(NotImplementedError, match="contact"):
-        tga.assemble_grid_hessian(tdg, tdr, off, 5, SchwarzConfig(), collisions=object())
+    with pytest.raises(ValueError, match="o2s"):
+        prepare_grid(tdg, tdr, off, 5, SchwarzConfig(), stencils=empty_stencils())
+    dims = (4, 4, 2)
+    ell = tetmesh.assemble_system(tetmesh.make_box(*dims), device="cpu")
+    dg, dr = boxstencil.planes_from_ell(ell, dims)
+    with pytest.raises(ValueError, match="o2s"):
+        prepare_box(dg, dr, boxstencil.BOX_OFFSETS, dims, SchwarzConfig(), empty_stencils())
 
 
 # ---- apply -----------------------------------------------------------------------

@@ -43,5 +43,6 @@ def test_sources_found():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     assert "chip_smoke.py" in names and os.path.join("precond_tpu_torch", "solver.py") in names
     for mod in ("reference_api.py", "models/collision.py", "models/hashgrid.py",
-                "ops/contact.py", "ops/stencils.py", "utils/scatter.py"):
+                "ops/contact.py", "ops/stencils.py", "utils/scatter.py", "models/simulator.py",
+                "models/tetmesh.py", "ops/boxstencil.py", "utils/boxmorton.py"):
         assert os.path.join("precond_tpu_torch", *mod.split("/")) in names, mod

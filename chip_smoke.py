@@ -35,6 +35,12 @@ what comes out against references. It prints, in order:
     frames each, card against CPU, K1 and K3 on its last prepare);
   * tet 64 (the static box path) and tet 48 (the general path): the JAX
     bench's tet config against block-Jacobi and BASELINE.md's iterations;
+  * bf16 inverse storage (inverse_dtype="bfloat16", K3's bf16 entry):
+    general 256 under both Morton sorts, the JAX oracle test's 24x24
+    per_axis case, cloth 1024 and cloth 256, each held to the outcome of
+    scripts/jax_bf16_record.py's JAX record (bf16 stalls CG at the bench's
+    stiffness; where the record converges, a band around its count), with
+    prepare ms, ms/iter and peak memory beside the f32 run;
   * small-input references: a dense solve on a one-bank mesh, the card
     against the CPU (plain versions) on 32x32 cloths for both paths and on
     a 64x64 fold for the collide path, the analytic-hierarchy prepare
@@ -43,6 +49,16 @@ what comes out against references. It prints, in order:
   * per kernel: error against its plain version with the tolerance on
     every path's blocks and tables, and kernel / plain / library times
     (CUDA events) beside the bound;
+  * K3's bf16 entry against its plain version on the bf16 tables, with a
+    bitwise repeat;
+  * checkpoints on the card: save_solver / load_solver of general 1024
+    (PackedInverse), cloth 1024 (PackedInverseCM), cloth 256
+    (DenseInverseCM) and general 256 bf16 into fresh solvers (state and
+    apply bitwise, a resumed solve the same), and one save_solver_sharded /
+    load_solver_sharded round trip; file sizes and save / load ms;
+  * profiling: PhaseTimer around a cloth 1024 prepare and solve
+    (SolveMetrics JSON), and a device_trace of one PCG iteration whose
+    trace must name K2's and K4's kernels;
   * one JSON line of kernel records, the nvidia-smi name/power line, and a
     last JSON line {"ok": true, "device": {...}}.
 
@@ -107,6 +123,22 @@ JAX_RECORD_ITERS_TET = {64: (88, 256), 48: (88, 280)}
 TET_BOX, TET_GENERAL = 64, 48
 # examples/softbody_drop.py's scene at 16^3, card against CPU
 SOFTBODY = 16
+# The JAX package's bf16 records (inverse_dtype="bfloat16"), from
+# scripts/jax_bf16_record.py on the CPU with this script's settings (the bench
+# meshes, rhs from seed 0, tol 1e-4, every iteration tested, a cap of 2000):
+# (Schwarz iterations, reached tol) per (path, side, Morton normalization).
+# At the bench's stiffness bf16 storage stalls CG (BASELINE.md:281-282) under
+# either sort; ("general", 24, "per_axis") is tests/test_precond_oracle.py's
+# case (rhs seed 6, a cap of 1000), where bf16 converges (JAX f32: 96). The
+# cloth 1024 entry is the record's at 512 (2000, rel 1.34): the JAX grid path
+# stalls at 256 and 512 alike, and its CPU run at 1024 is not made (~15 GB).
+JAX_RECORD_BF16 = {("general", 256, "isotropic"): (2000, False),
+                   ("general", 256, "per_axis"): (2000, False),
+                   ("general", 24, "per_axis"): (123, True),
+                   ("cloth", 256, None): (2000, False),
+                   ("cloth", 1024, None): (2000, False)}
+# accepted band around a converged bf16 record: +-max(abs, rel * count)
+BF16_BAND = (5, 0.10)
 
 
 class SmokeFailure(RuntimeError):
@@ -225,6 +257,7 @@ def run_general(grid: int, expect_packed: bool, tol: float = 1e-4,
         f"(system built in {host_s:.2f} s)")
 
     # ---- the counted run: allocate -> prepare -> PCG through the entry points
+    held_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launch_counts()
     t0 = time.perf_counter()
@@ -296,8 +329,10 @@ def run_general(grid: int, expect_packed: bool, tol: float = 1e-4,
     require(same_state and same_apply, f"general {grid}: prepare/apply not bit-reproducible")
     del pre2
 
-    return dict(grid=grid, n=n, pre=pre, ell=ell, counts=counts, iters=res.iterations,
-                jacobi_iters=jac.iterations)
+    return dict(grid=grid, n=n, pre=pre, ell=ell, b=b, counts=counts, iters=res.iterations,
+                jacobi_iters=jac.iterations, prepare_ms=prepare_ms,
+                ms_per_iter=1e3 * (t3 - t2) / max(res.iterations, 1), peak_gb=peak_gb,
+                held_gb=held_gb, apply_ms=apply_ms)
 
 
 def main_path_h96(run: dict):
@@ -433,7 +468,9 @@ def run_cloth(grid: int, expect_packed: bool, tol: float = 1e-4, profile: bool =
     del inv2
 
     return dict(grid=grid, n=n, k=k, cfg=cfg, inv=inv, ssys=ssys, dgr=dgr, drr=drr,
-                offsets=offsets, counts=counts, iters=res.iterations, jacobi_iters=jac.iterations)
+                offsets=offsets, counts=counts, iters=res.iterations, jacobi_iters=jac.iterations,
+                prepare_ms=prepare_ms, ms_per_iter=1e3 * (t2 - t1) / max(res.iterations, 1),
+                peak_gb=peak_gb, held_gb=held_gb, apply_ms=apply_ms, b=b)
 
 
 def run_grid_solve_step(grid: int, tol: float = 1e-4) -> dict:
@@ -1262,6 +1299,293 @@ def run_softbody(side: int = 16, frames: int = 3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# bf16 inverse storage, checkpoints and profiling
+# ---------------------------------------------------------------------------
+
+def bf16_gate(label: str, res, tol: float, rec) -> bool:
+    """Hold a bf16 solve to its JAX record's outcome: where JAX reached tol,
+    the port must too, within BF16_BAND of its count; where JAX stalled at
+    the cap, the port must not reach tol either. Returns whether it reached
+    tol."""
+    its, reached = rec
+    rel = float(res.rel_residual)
+    ok = rel <= tol
+    if reached:
+        band = max(BF16_BAND[0], int(BF16_BAND[1] * its))
+        log(f"[{label}] reached tol in {res.iterations} iterations; JAX record {its} "
+            f"(band +-{band})")
+        require(ok, f"{label}: did not reach tol {tol} where the JAX record does")
+        require(abs(res.iterations - its) <= band,
+                f"{label}: {res.iterations} iterations, outside {its} +- {band}")
+    else:
+        log(f"[{label}] did NOT reach tol {tol}: {res.iterations} iterations, rel_residual "
+            f"{rel:.3e}, as the JAX record stalls ({its} iterations without reaching tol); "
+            f"bf16 storage stalls CG at this conditioning, so this solve is no pass")
+        require(not ok, f"{label}: reached tol where the JAX record stalls")
+    return ok
+
+
+def run_general_bf16(grid: int, norm: str, f32=None, tol: float = 1e-4,
+                     seed: int = 0, max_iters: int = 2000) -> dict:
+    """The general-mesh path with bf16 inverse storage: the dense bf16 table
+    and K3's bf16 entry (packed storage is f32 only). `f32` is the f32 run of
+    the same mesh (its system is reused, its numbers printed beside)."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig, SchwarzPreconditioner
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.blockcsr import spmv
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.parallel.pcg import pcg
+
+    label = f"general {grid} bf16 {norm}"
+    mesh = cloth.make_grid(grid, grid, z_wave=0.02, mass=0.001, dt=1.0 / 60.0)
+    ell = f32["ell"] if f32 is not None else cloth.assemble_system(mesh, device=DEVICE)
+    n = mesh.num_verts
+    b = torch.as_tensor(
+        np.random.default_rng(seed).standard_normal((n, 3)).astype(np.float32), device=DEVICE)
+    cfg = SchwarzConfig(inverse_dtype="bfloat16", morton_normalization=norm)
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    pre = SchwarzPreconditioner(cfg, device=DEVICE)
+    pre.allocate(mesh.positions)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pre.prepare(ell)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = pcg(lambda x: spmv(ell, x), pre.apply, b, tol=tol, max_iters=max_iters)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = dict(_lib.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    inv = pre.state.inv96
+    log(f"[{label}] N={n} table {tuple(inv.shape)} {inv.dtype}; launches {counts}")
+    require(isinstance(inv, torch.Tensor) and inv.dtype == torch.bfloat16,
+            f"{label}: expected a dense bf16 table, got {type(inv).__name__}")
+    require(counts["spd_inverse96"] == 1 and counts["symv96"] == 0
+            and counts["symv96_bf16"] >= res.iterations,
+            f"{label}: K1 once and K3-bf16 every iteration expected, got {counts}")
+    bf16_gate(label, res, tol, JAX_RECORD_BF16[("general", grid, norm)])
+    prepare_ms = time_ms(lambda: pre.prepare(ell), warmup=0, iters=2)
+    apply_ms = time_ms(lambda: pre.apply(b), warmup=2, iters=10)
+    ms_iter = 1e3 * (t3 - t2) / max(res.iterations, 1)
+    line = (f"[{label}] prepare_ms(first)={1e3 * (t2 - t1):.1f} prepare_ms={prepare_ms:.1f} "
+            f"apply_ms={apply_ms:.3f} ms_per_iter={ms_iter:.3f} peak_mem_gb={peak_gb:.2f} "
+            f"(held before the run: {held_gb:.2f})")
+    if f32 is not None:
+        line += (f"; f32 (isotropic): prepare_ms={f32['prepare_ms']:.1f} "
+                 f"apply_ms={f32['apply_ms']:.3f} ms_per_iter={f32['ms_per_iter']:.3f} "
+                 f"peak_mem_gb={f32['peak_gb']:.2f} (held: {f32['held_gb']:.2f})")
+    log(line)
+    z = pre.apply(b)
+    require(torch.equal(z, pre.apply(b)), f"{label}: apply not bit-reproducible")
+    return dict(pre=pre, ell=ell, b=b, counts=counts, iters=res.iterations)
+
+
+def run_cloth_bf16(f32: dict, tol: float = 1e-4) -> dict:
+    """The grid path with bf16 inverse storage: a bf16 DenseInverseCM applied
+    by K3's bf16 entry through dense_symv_cm, K4 behind the SpMV."""
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.ops import gridstencil
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.ops.cuda.packed_symv import DenseInverseCM
+    from precond_tpu_torch.ops.gridapply import precondition_grid_cm
+    from precond_tpu_torch.parallel.pcg import pcg
+    from precond_tpu_torch.solver import prepare_grid
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    grid, k, ssys = f32["grid"], f32["k"], f32["ssys"]
+    dgr, drr, offsets = f32["dgr"], f32["drr"], f32["offsets"]
+    label = f"cloth {grid} bf16"
+    cfg = SchwarzConfig(inverse_dtype="bfloat16")
+    bt = f32["b"].T.contiguous()
+
+    def spmv(p):
+        return gridstencil.spmv_t(ssys, p)
+
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    inv = prepare_grid(dgr, drr, offsets, k, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+
+    def pre_op(r):
+        return gm.morton_to_grid_cm(precondition_grid_cm(inv, gm.grid_to_morton_cm(r, k), cfg), k)
+
+    res = pcg(spmv, pre_op, bt, tol=tol, max_iters=2000)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = dict(_lib.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(isinstance(inv, DenseInverseCM) and inv.m.dtype == torch.bfloat16,
+            f"{label}: expected a bf16 DenseInverseCM, got {type(inv).__name__}")
+    log(f"[{label}] N={f32['n']} table {tuple(inv.m.shape)} {inv.m.dtype}; launches {counts}")
+    require(counts["spd_inverse96"] == 1 and counts["packed_symv96"] == 0
+            and counts["symv96_bf16"] >= res.iterations
+            and counts["stencil_spmv"] >= res.iterations,
+            f"{label}: K1 once, K3-bf16 and K4 every iteration expected, got {counts}")
+    bf16_gate(label, res, tol, JAX_RECORD_BF16[("cloth", grid, None)])
+    prepare_ms = time_ms(lambda: prepare_grid(dgr, drr, offsets, k, cfg), warmup=0, iters=2)
+    apply_ms = time_ms(lambda: pre_op(bt), warmup=2, iters=10)
+    ms_iter = 1e3 * (t2 - t1) / max(res.iterations, 1)
+    log(f"[{label}] prepare_ms(first)={1e3 * (t1 - t0):.1f} prepare_ms={prepare_ms:.1f} "
+        f"apply_ms={apply_ms:.3f} ms_per_iter={ms_iter:.3f} peak_mem_gb={peak_gb:.2f} "
+        f"(held before the run: {held_gb:.2f}); f32: prepare_ms={f32['prepare_ms']:.1f} "
+        f"apply_ms={f32['apply_ms']:.3f} ms_per_iter={f32['ms_per_iter']:.3f} "
+        f"peak_mem_gb={f32['peak_gb']:.2f} (held: {f32['held_gb']:.2f})")
+    z = pre_op(bt)
+    require(torch.equal(z, pre_op(bt)), f"{label}: apply not bit-reproducible")
+    return dict(inv=inv, counts=counts, iters=res.iterations)
+
+
+def grid_holder(inv, k: int, cfg):
+    """A SchwarzPreconditioner holding the grid path's state: the tile maps,
+    the analytic hierarchy and a prepare_grid inverse (what a grid-path
+    application checkpoints)."""
+    import torch
+    from precond_tpu_torch import SchwarzPreconditioner
+    from precond_tpu_torch.ops import hierarchy as hi
+    from precond_tpu_torch.ops.apply import ApplyState
+    from precond_tpu_torch.ops.gridapply import analytic_hierarchy
+    from precond_tpu_torch.solver import SortMaps
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    n = 4**k
+    hier = analytic_hierarchy(n, cfg, DEVICE)
+    pre = SchwarzPreconditioner(cfg, device=DEVICE)
+    pre.maps = SortMaps(gm.sort_index(k, device=DEVICE).to(torch.int32),
+                        gm.sort_index(k, inverse=True, device=DEVICE).to(torch.int32))
+    pre.state = ApplyState(pre.maps.sorted_to_orig, pre.maps.orig_to_sorted, hier.going_next,
+                           hi.ancestor_node_ids(hier, cfg, n), inv, hier.overflow, hier.onehot,
+                           hier.pos, hier.pb)
+    pre.frame_index = 1
+    return pre
+
+
+def run_checkpoints(cases, sharded_case, tmp: str) -> None:
+    """save_solver / load_solver of each case's solver into a fresh one on
+    the card: the state and the apply bitwise equal, and a solve resumed from
+    the saved x takes the same iterations to the same bits. Then one
+    save_solver_sharded / load_solver_sharded round trip."""
+    import torch
+    from precond_tpu_torch import SchwarzPreconditioner
+    from precond_tpu_torch.io import checkpoint, sharded
+    from precond_tpu_torch.parallel.pcg import pcg
+
+    def resume(pre, x0, spmv, make_op, b):
+        return pcg(spmv, make_op(pre), b, x0=x0, tol=1e-4, max_iters=2000)
+
+    for label, pre, spmv, make_op, b in cases:
+        x_part = pcg(spmv, make_op(pre), b, tol=1e-4, max_iters=10).x
+        path = os.path.join(tmp, label.replace(" ", "_") + ".npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_solver(path, pre, x=x_part)
+        t1 = time.perf_counter()
+        pre2 = SchwarzPreconditioner(pre.cfg, device=DEVICE)
+        x2 = checkpoint.load_solver(path, pre2)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        same_state = same_bits(pre.state, pre2.state) and same_bits(pre.maps, pre2.maps)
+        op, op2 = make_op(pre), make_op(pre2)
+        same_apply = torch.equal(op(b), op2(b))
+        r1, r2 = resume(pre, x_part, spmv, make_op, b), resume(pre2, x2, spmv, make_op, b)
+        log(f"[checkpoint {label}] {type(pre.state.inv96).__name__}: file "
+            f"{os.path.getsize(path) / 1e6:.1f} MB, save_ms={1e3 * (t1 - t0):.1f} "
+            f"load_ms={1e3 * (t2 - t1):.1f}; state bitwise={same_state} apply bitwise={same_apply} "
+            f"x bitwise={torch.equal(x2, x_part)}; resumed solve {r1.iterations} / "
+            f"{r2.iterations} iterations, x bitwise={torch.equal(r1.x, r2.x)}")
+        require(same_state and same_apply and torch.equal(x2, x_part),
+                f"checkpoint {label}: the loaded solver differs")
+        require(r1.iterations == r2.iterations and torch.equal(r1.x, r2.x),
+                f"checkpoint {label}: the resumed solves differ")
+        del pre2
+        os.remove(path)
+
+    label, pre, spmv, make_op, b = sharded_case
+    path = os.path.join(tmp, "sharded")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded.save_solver_sharded(path, pre, x=b)
+    t1 = time.perf_counter()
+    pre2 = SchwarzPreconditioner(pre.cfg, device=DEVICE)
+    x2 = sharded.load_solver_sharded(path, pre2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    same = (same_bits(pre.state, pre2.state) and same_bits(pre.maps, pre2.maps)
+            and torch.equal(x2, b) and x2.device == b.device)
+    same_apply = torch.equal(make_op(pre)(b), make_op(pre2)(b))
+    log(f"[checkpoint sharded {label}] {type(pre.state.inv96).__name__}: {len(os.listdir(path))} "
+        f"files, {size / 1e6:.1f} MB, save_ms={1e3 * (t1 - t0):.1f} load_ms={1e3 * (t2 - t1):.1f}; "
+        f"state bitwise={same} apply bitwise={same_apply}; torch {torch.__version__}")
+    require(same and same_apply, f"checkpoint sharded {label}: the loaded solver differs")
+
+
+def run_profiling(cl: dict, trace_dir: str) -> None:
+    """PhaseTimer around one cloth prepare and one solve (SolveMetrics JSON),
+    and device_trace around one comp-major PCG iteration, whose Chrome trace
+    must name K2's and K4's kernel symbols as CUDA kernel events."""
+    import torch
+    from precond_tpu_torch.ops import gridstencil
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.ops.gridapply import precondition_grid_cm
+    from precond_tpu_torch.parallel.pcg import pcg
+    from precond_tpu_torch.profiling import PhaseTimer, SolveMetrics, device_trace
+    from precond_tpu_torch.solver import prepare_grid
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    grid, k, cfg, ssys = cl["grid"], cl["k"], cl["cfg"], cl["ssys"]
+    bt = cl["b"].T.contiguous()
+    label = f"profiling cloth {grid}"
+
+    def spmv(p):
+        return gridstencil.spmv_t(ssys, p)
+
+    timer = PhaseTimer()
+    with timer.phase("prepare", sync=cl["dgr"]) as out:
+        inv = prepare_grid(cl["dgr"], cl["drr"], cl["offsets"], k, cfg)
+        out["sync"] = inv
+
+    def pre_op(r):
+        return gm.morton_to_grid_cm(precondition_grid_cm(inv, gm.grid_to_morton_cm(r, k), cfg), k)
+
+    with timer.phase("iterate", sync=bt) as out:
+        res = pcg(spmv, pre_op, bt, tol=1e-4, max_iters=2000)
+        out["sync"] = res.x
+    nnz = grid * grid + sum((grid - abs(di)) * (grid - abs(dj)) for di, dj in ssys.offsets)
+    metrics = SolveMetrics(num_verts=grid * grid, nnz_blocks=nnz, iterations=res.iterations,
+                           rel_residual=float(res.rel_residual), phase_ms=timer.as_dict())
+    log(f"[{label}] SolveMetrics {metrics.to_json()}")
+    require(res.iterations == cl["iters"] and float(res.rel_residual) <= 1e-4,
+            f"{label}: the timed solve took {res.iterations} iterations, the counted run "
+            f"{cl['iters']}")
+
+    before = dict(_lib.launch_counts)
+    with device_trace(trace_dir):
+        pcg(spmv, pre_op, bt, tol=0.0, max_iters=1)
+    launched = {k: v - before[k] for k, v in _lib.launch_counts.items() if v != before[k]}
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = sorted({e.get("name", "") for e in kernels})
+    found = {sym: sum(e.get("name", "").find(sym) >= 0 for e in kernels)
+             for sym in ("packed_symv96_kernel", "stencil_spmv_kernel")}
+    log(f"[{label}] device_trace of one PCG iteration: {os.path.getsize(path) / 1e6:.2f} MB, "
+        f"{len(events)} events, {len(kernels)} CUDA kernel events of {len(names)} kernels; "
+        f"K2 / K4 kernel events {found}, launches in the traced call {launched}")
+    require(all(found.values()), f"{label}: the trace does not name K2's and K4's kernels")
+
+
+# ---------------------------------------------------------------------------
 # small-input references
 # ---------------------------------------------------------------------------
 
@@ -1682,6 +2006,79 @@ def kernel_symv(inv96, launches_by_path: dict, path: str) -> dict:
                    launches_by_path, path, max_abs, ms, plain_ms, bound, lib_ms)
 
 
+def check_symv_bf16(inv, label: str):
+    """K3's bf16 entry on a bf16 table against its plain version (the einsum
+    of the widened table and the bf16-rounded rhs), and a bitwise repeat."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch.ops.batched_inverse import apply_block_inverse
+    from precond_tpu_torch.ops.cuda.symv import batched_symv
+
+    bsz = inv.shape[0]
+    rhs = torch.as_tensor(np.random.default_rng(3).standard_normal((bsz, 96)).astype(np.float32),
+                          device=DEVICE)
+    got = batched_symv(inv, rhs)
+    plain = apply_block_inverse(inv, rhs)
+    scale = float(plain.abs().max())
+    max_abs = float((got - plain).abs().max())
+    same = torch.equal(got, batched_symv(inv, rhs))
+    log(f"[K3-bf16 symv] {label} table B={bsz}: kernel vs plain max abs {max_abs:.3e} "
+        f"(tol 1e-5*max|z| = {1e-5 * scale:.3e}); two launches bitwise equal={same}")
+    require(max_abs <= 1e-5 * scale, f"K3-bf16 disagrees with its plain version on the {label} table")
+    require(same, "K3-bf16 is not bitwise repeatable from launch to launch")
+    return max_abs, rhs
+
+
+def kernel_symv_bf16(inv, launches_by_path: dict, path: str, small_inv, small_path: str) -> dict:
+    import torch
+    from precond_tpu_torch.ops.batched_inverse import apply_block_inverse
+    from precond_tpu_torch.ops.cuda.symv import batched_symv
+
+    def bound_of(b):
+        # the bf16 table, the f32 rhs read and the f32 z written
+        return bound_ms((96 * 96 * 2 + 2 * 96 * 4) * b, 2 * 96 * 96 * b)
+
+    def lib_ms(table, rhs):
+        """torch.bmm with f32 output on the bf16 table and the rhs rounded
+        beforehand (the rounding not timed): no single PyTorch call takes the
+        f32 rhs. None where this torch has no bmm(out_dtype=...) on the card."""
+        rb = rhs.to(torch.bfloat16)[:, :, None]
+        try:
+            out = torch.bmm(table, rb, out_dtype=torch.float32)
+        except (RuntimeError, TypeError) as e:
+            log(f"[K3-bf16 symv] no library time: torch.bmm(out_dtype=float32) is refused here "
+                f"({str(e).splitlines()[0][:120]})")
+            return None
+        diff = float((out[:, :, 0] - batched_symv(table, rhs)).abs().max())
+        log(f"[K3-bf16 symv] torch.bmm(out_dtype=float32) vs kernel max abs {diff:.3e}")
+        return time_ms(lambda: torch.bmm(table, rb, out_dtype=torch.float32), warmup=10, iters=200)
+
+    bsz = inv.shape[0]
+    max_abs, rhs = check_symv_bf16(inv, path)
+    ms = time_ms(lambda: batched_symv(inv, rhs), warmup=10, iters=200)
+    plain_ms = time_ms(lambda: apply_block_inverse(inv, rhs), warmup=3, iters=20)
+    lib = lib_ms(inv, rhs)
+    bound = bound_of(bsz)
+    small_max_abs, small_rhs = check_symv_bf16(small_inv, small_path)
+    small_ms = time_ms(lambda: batched_symv(small_inv, small_rhs), warmup=10, iters=200)
+    small_bound = bound_of(small_inv.shape[0])
+    small_lib = lib_ms(small_inv, small_rhs)
+    log(f"[K3-bf16 symv] {path} B={bsz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.bmm {lib if lib is None else f'{lib:.4f}'} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+        f"{small_path} B={small_inv.shape[0]}: kernel {small_ms:.4f} ms, bound "
+        f"{small_bound[0]:.4f} ms, torch.bmm {small_lib if small_lib is None else f'{small_lib:.4f}'} ms")
+    return _record("symv96_bf16", "precond_tpu_torch/csrc/symv.cu",
+                   "precond_tpu/ops/batched_inverse.py:257", launches_by_path, path, max_abs, ms,
+                   plain_ms, bound, lib,
+                   library_call=("torch.bmm(out_dtype=float32) on the bf16 table and the rhs "
+                                 "rounded beforehand (no single call takes the f32 rhs)"
+                                 if lib is not None else
+                                 "none: torch.bmm(out_dtype=float32) is refused by this torch"),
+                   small=dict(path=small_path, b=int(small_inv.shape[0]), ms=small_ms,
+                              bound_ms=small_bound[0], max_abs_err=small_max_abs,
+                              library_ms=small_lib))
+
+
 def stencil_bsr(ssys):
     """The stencil system as a 3x3-block BSR matrix over vertex-major DOFs
     (the library yardstick's operand; the port never uses it)."""
@@ -1862,6 +2259,12 @@ def main(argv=None) -> int:
     tet_box = run_tet(TET_BOX, profile=True)
     tet_gen = run_tet(TET_GENERAL, profile=True)
     soft = run_softbody(SOFTBODY)
+    # bf16 inverse storage (K3's bf16 entry) at the bench's sizes
+    gb_iso = run_general_bf16(args.dense_grid, "isotropic", dense)
+    gb_pa = run_general_bf16(args.dense_grid, "per_axis", dense)
+    gb_oracle = run_general_bf16(24, "per_axis", seed=6, max_iters=1000)
+    cb_big = run_cloth_bf16(cl)
+    cb_small = run_cloth_bf16(cl_dense)
     check_references()
     check_grid_references()
     check_collide_references()
@@ -1878,7 +2281,12 @@ def main(argv=None) -> int:
             f"tet {TET_BOX} (box)": tet_box["counts"],
             f"tet {TET_GENERAL} (general)": tet_gen["counts"],
             f"SoftBodySim {SOFTBODY} linear (3 frames)": soft["counts_linear"],
-            f"SoftBodySim {SOFTBODY} corotational (3 frames)": soft["counts"]}
+            f"SoftBodySim {SOFTBODY} corotational (3 frames)": soft["counts"],
+            f"general {args.dense_grid} bf16 isotropic": gb_iso["counts"],
+            f"general {args.dense_grid} bf16 per_axis": gb_pa["counts"],
+            "general 24 bf16 per_axis": gb_oracle["counts"],
+            f"cloth {args.cloth} bf16": cb_big["counts"],
+            f"cloth {args.cloth_dense} bf16": cb_small["counts"]}
 
     def by_path(name):
         return {path: counts[name] for path, counts in runs.items()}
@@ -1917,6 +2325,43 @@ def main(argv=None) -> int:
     del h96
     kernels.append(kernel_symv(cl_dense["inv"].m, by_path("symv96"), f"cloth {args.cloth_dense}"))
     kernels.append(kernel_stencil_spmv(cl, by_path("stencil_spmv"), head, cl_dense))
+    # K3's bf16 entry on the bf16 tables: cloth's B = 34,952 and general's 2,185
+    check_symv_bf16(cb_small["inv"].m, f"cloth {args.cloth_dense} bf16")
+    kernels.append(kernel_symv_bf16(cb_big["inv"].m, by_path("symv96_bf16"),
+                                    f"cloth {args.cloth} bf16", gb_iso["pre"].state.inv96,
+                                    f"general {args.dense_grid} bf16 isotropic"))
+    del cb_small, gb_pa, gb_oracle
+
+    # checkpoints: one state of each inverse type, on the card
+    import tempfile
+
+    from precond_tpu_torch.ops import gridstencil
+    from precond_tpu_torch.ops.blockcsr import spmv as ell_spmv
+    from precond_tpu_torch.ops.gridapply import precondition_grid_cm
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    def general_case(label, run):
+        ell = run["ell"]
+        return (label, run["pre"], lambda x: ell_spmv(ell, x), lambda p: p.apply, run["b"])
+
+    def grid_case(label, run, inv):
+        k, ssys = run["k"], run["ssys"]
+
+        def make_op(p):
+            return lambda r: gm.morton_to_grid_cm(
+                precondition_grid_cm(p.state.inv96, gm.grid_to_morton_cm(r, k), p.cfg_effective), k)
+
+        return (label, grid_holder(inv, k, run["cfg"]), lambda x: gridstencil.spmv_t(ssys, x),
+                make_op, run["b"].T.contiguous())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        big_case = general_case(f"general {args.grid}", big)
+        run_checkpoints([big_case,
+                         grid_case(f"cloth {args.cloth}", cl, cl["inv"]),
+                         grid_case(f"cloth {args.cloth_dense}", cl_dense, cl_dense["inv"]),
+                         general_case(f"general {args.dense_grid} bf16", gb_iso)],
+                        big_case, tmp)
+    run_profiling(cl, os.path.join(here, "build", f"trace_cloth{args.cloth}"))
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,10 +2,10 @@
 
 The JAX package's fields that the general-mesh and grid paths read, with
 the same defaults, checks and static level geometry, so a configuration
-means the same hierarchy in both. Fields that select code not ported yet
-are absent rather than silently ignored: bf16 inverse storage
-(inverse_dtype) and the TPU-only kernel switches (use_pallas_symv, pallas_inverse_group, and
-inverse_kernel="pallas", whose function the "panel" kernel computes).
+means the same hierarchy in both. The TPU-only kernel switches
+(use_pallas_symv, pallas_inverse_group, and inverse_kernel="pallas", whose
+function the "panel" kernel computes) are absent rather than silently
+ignored.
 The reference hard-codes these as compile-time constants:
   - bank (domain) size 32        -> SeSchwarzPreconditioner.cpp:139
   - 32x coarsening per level     -> cpp:124-131
@@ -72,7 +72,7 @@ class SchwarzConfig:
     packed_symv_block_b: int = 256
 
     def use_packed_symv(self, num_verts: int) -> bool:
-        if self.symv_kernel == "dense":
+        if self.symv_kernel == "dense" or self.inverse_dtype != "float32":
             return False
         if self.symv_kernel == "packed":
             return True
@@ -108,6 +108,15 @@ class SchwarzConfig:
     # 1.0 is the reference's plain additive sum (cpp:1708-1717).
     coarse_damping: float = 1.0
 
+    # Storage dtype of the factorized domain inverses: "float32" or
+    # "bfloat16". bf16 halves the apply's table traffic; the symv rounds the
+    # rhs to bf16 and accumulates in f32 (ops/cuda/symv.py). Rounding a
+    # symmetric matrix entrywise keeps it symmetric, so CG stays valid, but
+    # at cloth-stiff conditioning (~1e7) the rounded M can lose positive
+    # definiteness and stall CG: f32 is the default. Packed storage is f32
+    # only, so bf16 takes the dense tables.
+    inverse_dtype: str = "float32"
+
     def __post_init__(self):
         if self.bank_size != 32:
             raise ValueError("bank_size is pinned to 32 (uint32 masks / 96x96 blocks)")
@@ -123,6 +132,8 @@ class SchwarzConfig:
             raise ValueError(f"coarse_damping={self.coarse_damping}")
         if self.inverse_kernel not in ("panel", "xla"):
             raise ValueError(self.inverse_kernel)
+        if self.inverse_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"inverse_dtype={self.inverse_dtype!r} (float32 or bfloat16)")
         if self.max_collision_per_vert < 1:
             raise ValueError(f"max_collision_per_vert={self.max_collision_per_vert} must be >= 1")
 

@@ -25,8 +25,19 @@ from .solver import SortMaps
 
 def _t(a, dev, dtype=None) -> torch.Tensor:
     arr = np.asarray(a)
+    if dtype is None and arr.dtype.name == "bfloat16":
+        return bf16_from_numpy(arr, dev)
     return torch.as_tensor(np.ascontiguousarray(arr if dtype is None else arr.astype(dtype)),
                            device=dev)
+
+
+def bf16_from_numpy(arr, dev) -> torch.Tensor:
+    """A bf16 tensor from JAX's bf16 numpy array (the ``ml_dtypes.bfloat16``
+    dtype, which torch cannot read): its 16-bit patterns, carried as int16
+    and viewed back as bf16, so no bit changes and no ml_dtypes import is
+    needed."""
+    bits = np.array(arr).view(np.int16)   # a writable copy
+    return torch.as_tensor(bits, device=dev).view(torch.bfloat16)
 
 
 def block_ell_from_numpy(diag, idx, blocks, mask, device=None) -> BlockEll:
@@ -47,13 +58,19 @@ def apply_state_from_numpy(
 ) -> ApplyState:
     """ApplyState from the JAX ApplyState's fields.
 
-    `inv96` is either a dense [B,96,96] array or the JAX PackedInverse
-    (any object with fields f [48,96,Bp], dg [96,Bp] and nb).
+    `inv96` is a dense [B,96,96] array (f32, or JAX's bf16), the JAX
+    PackedInverse or PackedInverseCM (fields f [48,96,Bp], dg [96,Bp], nb),
+    or the JAX DenseInverseCM (field m [3,32,3,32,B]); the packed and
+    comp-major forms are told apart by their type's name.
     """
     dev = resolve_device(device)
-    if hasattr(inv96, "f"):
-        inv = PackedInverse(f=_t(inv96.f, dev, np.float32), dg=_t(inv96.dg, dev, np.float32),
-                            nb=int(np.asarray(inv96.nb)))
+    kind = type(inv96).__name__
+    if kind == "DenseInverseCM":
+        inv = dense_inverse_cm_from_numpy(inv96.m, device=dev)
+    elif hasattr(inv96, "f"):
+        cls = PackedInverseCM if kind == "PackedInverseCM" else PackedInverse
+        inv = cls(f=_t(inv96.f, dev, np.float32), dg=_t(inv96.dg, dev, np.float32),
+                  nb=int(np.asarray(inv96.nb)))
     else:
         inv = _t(inv96, dev)
     return ApplyState(
@@ -109,12 +126,26 @@ def packed_inverse_cm_from_numpy(f, dg, nb, device=None) -> PackedInverseCM:
 
 
 def dense_inverse_cm_from_numpy(m, device=None) -> DenseInverseCM:
-    """DenseInverseCM from the JAX one's batch-minor table m [3,32,3,32,B]:
-    the port stores the same comp-major blocks batch-major, [B,96,96]."""
-    dev = resolve_device(device)
-    arr = np.asarray(m, np.float32)
-    b = arr.shape[-1]
-    return DenseInverseCM(m=_t(np.transpose(arr, (4, 0, 1, 2, 3)).reshape(b, 96, 96), dev))
+    """DenseInverseCM from the JAX one's batch-minor table m [3,32,3,32,B]
+    (f32, or JAX's bf16, kept bf16)."""
+    arr = np.asarray(m)
+    bf16 = arr.dtype.name == "bfloat16"
+    return dense_inverse_cm_from_jax_layout(
+        _t(arr, resolve_device(device), None if bf16 else np.float32))
+
+
+def dense_inverse_cm_from_jax_layout(m: torch.Tensor) -> DenseInverseCM:
+    """The JAX layout [3,32,3,32,B] -> the port's DenseInverseCM, which
+    stores the same comp-major blocks batch-major, [B,96,96]."""
+    b = m.shape[-1]
+    return DenseInverseCM(m=m.permute(4, 0, 1, 2, 3).reshape(b, 96, 96).contiguous())
+
+
+def dense_inverse_cm_to_jax_layout(inv: DenseInverseCM) -> torch.Tensor:
+    """The port's DenseInverseCM -> the JAX layout [3,32,3,32,B] (the inverse
+    of dense_inverse_cm_from_jax_layout)."""
+    b = inv.m.shape[0]
+    return inv.m.reshape(b, 3, 32, 3, 32).permute(1, 2, 3, 4, 0).contiguous()
 
 
 def _sets(cls, fields, dev):

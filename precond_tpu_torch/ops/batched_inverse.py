@@ -117,6 +117,11 @@ def apply_block_inverse(inv96: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """z_b = inv_b @ r_b for every block. ([B,96,96], [B,96]) -> [B,96].
 
     The plain version of the dense symv (SchwarzLocalXSym, cpp:1600-1696);
-    accumulation is f32.
+    accumulation is f32. A bf16 table (SchwarzConfig.inverse_dtype) takes
+    the rhs rounded to bf16, as the JAX package's ``rhs.astype(inv96.dtype)``
+    does; both are widened to f32 before the einsum, because an einsum on
+    bf16 operands returns bf16 and would round the output.
     """
+    if inv96.dtype == torch.bfloat16:
+        return torch.einsum("bij,bj->bi", inv96.float(), rhs.to(torch.bfloat16).float())
     return torch.einsum("bij,bj->bi", inv96, rhs)

@@ -37,7 +37,8 @@ _lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}
 #: kernel launches per wrapper; a wrapper adds one where it launches, and
 #: nowhere else (a run can show that the main path went through a kernel)
-launch_counts = {"spd_inverse96": 0, "packed_symv96": 0, "symv96": 0, "stencil_spmv": 0}
+launch_counts = {"spd_inverse96": 0, "packed_symv96": 0, "symv96": 0, "symv96_bf16": 0,
+                 "stencil_spmv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "spd_inverse96": (_VP, _VP, _I, _I, _VP),   # a, out, nb, repair, stream
     "packed_symv96": (_VP, _VP, _VP, _VP, _I, _VP),
     "symv96": (_VP, _VP, _VP, _I, _VP),
+    "symv96_bf16": (_VP, _VP, _VP, _I, _VP),    # bf16 table, f32 rhs and z
     # diag, dirs, x, y, nx, ny, nd, host int[2*nd] offsets, stream
     "stencil_spmv": (_VP, _VP, _VP, _VP, _I, _I, _I, _IP, _VP),
     # no launch: K1's shared memory per block and blocks per SM (out int*)
@@ -132,14 +134,16 @@ def load() -> ctypes.CDLL:
         return lib
 
 
-def check_operand(name: str, t, shape, what: str, device) -> None:
-    """Raise unless `t` is a contiguous f32 tensor of `shape` on CUDA `device`."""
+def check_operand(name: str, t, shape, what: str, device, dtype=None) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` (default f32) and
+    `shape` on CUDA `device`."""
     import torch
 
+    dtype = torch.float32 if dtype is None else dtype
     if t.device.type != "cuda" or t.device != device:
         raise ValueError(f"{name}: {what} must be a CUDA tensor on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: {what} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: {what} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {what} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -69,9 +69,10 @@ def _debug_enabled(cfg: SchwarzConfig) -> bool:
 def _factorize(h96: torch.Tensor, cfg: SchwarzConfig, n: int, allow_cm: bool = False):
     """Batched 96x96 SPD factorization tail shared by the prepares.
 
-    Returns dense f32[B,96,96] inverses, or — when cfg.use_packed_symv(n) —
-    the packed-symmetric PackedInverse form (4704 floats/block, the
-    reference's LDLtInverse512 packed count, cpp:165,1349). A prepare that
+    Returns dense [B,96,96] inverses in cfg.inverse_dtype, or — when
+    cfg.use_packed_symv(n), which bf16 storage rules out — the f32
+    packed-symmetric PackedInverse form (4704 floats/block, the reference's
+    LDLtInverse512 packed count, cpp:165,1349). A prepare that
     supports the comp-major solve (allow_cm: the >= 32x32 2-D grid path)
     returns the comp-major forms instead when cfg.use_cm(n): PackedInverseCM
     above the packed threshold, DenseInverseCM below it.
@@ -93,6 +94,9 @@ def _factorize(h96: torch.Tensor, cfg: SchwarzConfig, n: int, allow_cm: bool = F
     if cfg.use_packed_symv(n):
         pack = pack_sym96_cm if cm else pack_sym96
         return pack(inv96, block_b=cfg.packed_symv_block_b)
+    # dense storage in cfg.inverse_dtype, rounded after the f32 inverse (the
+    # packed forms above are f32 only)
+    inv96 = inv96.to(getattr(torch, cfg.inverse_dtype))
     return dense_cm(inv96) if cm else inv96
 
 

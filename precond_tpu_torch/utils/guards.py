@@ -13,7 +13,7 @@ from typing import List
 import torch
 
 from ..ops.apply import ApplyState
-from ..ops.cuda.packed_symv import PackedInverse
+from ..ops.cuda.packed_symv import DenseInverseCM, PackedInverse, PackedInverseCM
 
 
 def check_finite(name: str, *tensors: torch.Tensor) -> List[str]:
@@ -27,19 +27,24 @@ def check_finite(name: str, *tensors: torch.Tensor) -> List[str]:
 
 
 def validate_apply_state(state: ApplyState) -> List[str]:
-    """Sanity-check a prepared preconditioner state."""
-    if isinstance(state.inv96, PackedInverse):
+    """Sanity-check a prepared preconditioner state.
+
+    A bf16 table is widened to f32 for the checks: the widening is exact,
+    so a NaN or Inf stays one and the asymmetry is the stored one."""
+    inv = state.inv96
+    if isinstance(inv, (PackedInverse, PackedInverseCM)):
         # packed storage keeps one copy of each off-diagonal element, so
         # the applied operator is symmetric by construction — only
         # finiteness can go wrong
-        problems = check_finite("inv96.packed", state.inv96.f, state.inv96.dg)
+        problems = check_finite("inv96.packed", inv.f, inv.dg)
     else:
-        inv = state.inv96.float()
-        problems = check_finite("inv96", inv)
-        asym = float((inv - inv.transpose(1, 2)).abs().max())
-        scale = max(float(inv.abs().max()), 1e-30)
+        name, m = ("inv96.cm", inv.m) if isinstance(inv, DenseInverseCM) else ("inv96", inv)
+        m = m.float()
+        problems = check_finite(name, m)
+        asym = float((m - m.transpose(1, 2)).abs().max())
+        scale = max(float(m.abs().max()), 1e-30)
         if asym > 1e-5 * scale:
-            problems.append(f"inv96 asymmetry {asym:.3e} (scale {scale:.3e})")
+            problems.append(f"{name} asymmetry {asym:.3e} (scale {scale:.3e})")
     if bool(state.overflow):
         problems.append(
             "hierarchy overflow: a level exceeded its static capacity "

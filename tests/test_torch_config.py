@@ -19,11 +19,13 @@ VARIANTS = [
     {"packed_symv_min_blocks": 100, "max_applied_levels": 3},
     {"solve_layout": "cm"},
     {"solve_layout": "rows"},
+    {"inverse_dtype": "bfloat16"},
+    {"inverse_dtype": "bfloat16", "symv_kernel": "packed"},
 ]
 
 # JAX fields that select code the port does not carry yet; the port leaves
 # them out so setting one fails loudly instead of doing nothing
-NOT_CARRIED = {"inverse_dtype", "use_pallas_symv", "pallas_inverse_group"}
+NOT_CARRIED = {"use_pallas_symv", "pallas_inverse_group"}
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -60,7 +62,11 @@ def test_post_init_rejects_what_jax_rejects(bad):
 
 
 @pytest.mark.parametrize("bad", [
-    {"inverse_kernel": "pallas"}, {"inverse_dtype": "bfloat16"}, {"use_pallas_symv": True},
+    {"inverse_kernel": "pallas"},
+    # carried, but a storage dtype other than f32 / bf16 is refused (JAX
+    # takes it silently)
+    {"inverse_dtype": "float16"},
+    {"use_pallas_symv": True},
     {"pallas_inverse_group": 16},
     # carried, but a zero collision budget is refused (JAX takes it silently)
     {"max_collision_per_vert": 0},

@@ -206,6 +206,42 @@ def test_symv_kernel_matches_plain(cuda, b):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
 
 
+# B = 1 and 5: fewer blocks than one thread block's 8 warps; 4,097 not a
+# multiple of 8, so the last thread block is ragged
+@pytest.mark.parametrize("b", [1, 5, 300, 4097])
+def test_symv_bf16_kernel_matches_plain(cuda, b):
+    """K3's bf16 entry: z = inv bf16(r) with f32 sums, against the plain
+    einsum of the widened operands (only the order of the f32 sums differs)."""
+    inv = torch.as_tensor(_sym(b, seed=8), device=cuda).to(torch.bfloat16)
+    rhs = torch.as_tensor(np.random.default_rng(9).standard_normal((b, 96)).astype(np.float32),
+                          device=cuda)
+    before = dict(_lib.launch_counts)
+    got = batched_symv(inv, rhs)
+    assert _lib.launch_counts["symv96_bf16"] == before["symv96_bf16"] + 1
+    assert _lib.launch_counts["symv96"] == before["symv96"]
+    assert got.dtype == torch.float32
+    want = apply_block_inverse(inv, rhs)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert torch.equal(got, batched_symv(inv, rhs))          # bitwise repeat
+    # the CPU plain version of the same operands agrees as well
+    cpu = apply_block_inverse(inv.cpu(), rhs.cpu())
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * scale
+
+
+def test_symv_rejects_other_dtypes(cuda):
+    inv = torch.zeros((2, 96, 96), dtype=torch.float16, device=cuda)
+    before = dict(_lib.launch_counts)
+    with pytest.raises(ValueError, match="no kernel"):
+        batched_symv(inv, torch.zeros((2, 96), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        batched_symv(inv.to(torch.bfloat16), torch.zeros((2, 96), device=cuda).double())
+    flat = torch.zeros(2 * 96 * 96 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="4-byte"):
+        batched_symv(flat[1:].view(2, 96, 96), torch.zeros((2, 96), device=cuda))
+    assert _lib.launch_counts == before
+
+
 def _cloth_stencil(nx, ny, cuda, pin_rows=0):
     from precond_tpu_torch.models import cloth
     from precond_tpu_torch.ops.gridstencil import pin_vertices

@@ -1,5 +1,6 @@
-"""Import hygiene: the port and chip_smoke.py never import JAX or the JAX
-package (precond_tpu_torch itself excepted)."""
+"""Import hygiene: the port and chip_smoke.py never import JAX, the JAX
+package (precond_tpu_torch itself excepted) or JAX's dependencies that the
+card's machine lacks (ml_dtypes, orbax)."""
 
 import ast
 import os
@@ -18,7 +19,7 @@ def _sources():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "precond_tpu")
+    return top in ("jax", "jaxlib", "precond_tpu", "ml_dtypes", "orbax")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -44,5 +45,6 @@ def test_sources_found():
     assert "chip_smoke.py" in names and os.path.join("precond_tpu_torch", "solver.py") in names
     for mod in ("reference_api.py", "models/collision.py", "models/hashgrid.py",
                 "ops/contact.py", "ops/stencils.py", "utils/scatter.py", "models/simulator.py",
-                "models/tetmesh.py", "ops/boxstencil.py", "utils/boxmorton.py"):
+                "models/tetmesh.py", "ops/boxstencil.py", "utils/boxmorton.py",
+                "profiling.py", "io/checkpoint.py", "io/sharded.py"):
         assert os.path.join("precond_tpu_torch", *mod.split("/")) in names, mod

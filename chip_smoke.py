@@ -59,12 +59,28 @@ what comes out against references. It prints, in order:
   * profiling: PhaseTimer around a cloth 1024 prepare and solve
     (SolveMetrics JSON), and a device_trace of one PCG iteration whose
     trace must name K2's and K4's kernels;
+  * K3-bf16 against torch.bmm(out_dtype=float32) in 10 interleaved pairs
+    at B = 34,952 and 2,185 (medians and spreads);
+  * multiple ranks, each rank a child process of this script on cuda:0
+    (gloo stages its payloads through host memory; NCCL at one rank), each
+    against its single-rank step: the sharded grid steps on 2 ranks (cloth
+    1024 and the collide sheet, K4 and K3 per rank) and their collective
+    DCP save, read back whole here (2 -> 1) and, from a one-rank save, onto
+    2 ranks (1 -> 2); sharded_solve_step at general 1024 on 2 ranks (the
+    ring halo) and 4 ranks (the all_to_all), packed (K2 per rank) and
+    dense (K3 per rank), and on 1 NCCL rank; the halo PCG with contact on
+    the collide sheet on 4 ranks. Per rank: iterations, x against the
+    single-rank x, launch counts, prepare ms, ms/iter, time and bytes in
+    collectives, peak memory, a bitwise repeat, and the rank's own fine
+    table through K2 or K3 against the plain version;
   * one JSON line of kernel records, the nvidia-smi name/power line, and a
     last JSON line {"ok": true, "device": {...}}.
 
 Each path runs once with the launch counts set to 0 just before it and
-read just after. Any failed check exits nonzero without the last line.
-Needs a CUDA card and the repository checkout around this file.
+read just after (in every rank for the multi-rank paths). Any failed
+check, and any rank that fails or outlasts its time limit, exits nonzero
+without the last line. Needs a CUDA card and the repository checkout
+around this file.
 
     python3 chip_smoke.py [--grid 1024] [--dense-grid 256] [--cloth 1024] [--cloth-dense 256]
                           [--collide 256]
@@ -1586,6 +1602,464 @@ def run_profiling(cl: dict, trace_dir: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# multiple ranks (slice 9): child processes of this script, one per rank
+# ---------------------------------------------------------------------------
+
+# a child job's time limit (every rank of it); the parent kills the job's
+# ranks past it and fails
+RANK_TIMEOUT = 420
+# the JAX tests' x tolerance (tests/test_halo.py:46-48): rtol, atol * max|x|
+X_RTOL, X_ATOL = 5e-3, 5e-4
+# iteration bands against the single-rank count: tests/test_halo.py's 3 on
+# the halo path, tests/test_gridsharded.py:38's +5 on the grid path
+HALO_BAND, GRID_BAND = 3, 5
+# the bench's general 256 solver and its known x (rows differ), which the
+# checkpoint round trips carry
+DCP_GRID = 256
+
+
+def run_ranks(job: str, world: int, backend: str, out: str, extra=()) -> list:
+    """Run `job` as `world` rank processes of this script sharing the card
+    (cuda:0) through hosts.launch_local_ranks, with the time limit
+    RANK_TIMEOUT: a rank that fails or outlasts it kills the others and
+    fails the phase. Returns each rank's JSON result; prints each rank's
+    log lines."""
+    from precond_tpu_torch.parallel import hosts
+
+    try:
+        logs = hosts.launch_local_ranks(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker", job, "--backend", backend,
+             "--out", out, *extra], world, RANK_TIMEOUT, out)
+    except RuntimeError as e:
+        raise SmokeFailure(f"{job} on {world} {backend} ranks: {e}") from None
+    results = []
+    for r in range(world):
+        for line in logs[r].splitlines():
+            if line.startswith("["):
+                log(f"  [{job} rank {r}/{world}] {line}")
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _rows_ok(x, ref, start: int, stop: int) -> float:
+    """Max |x - ref rows| / max|ref|; fails past the JAX tests' tolerance."""
+    import torch
+
+    want = ref[start:stop]
+    scale = float(ref.abs().max())
+    ok = bool(((x - want).abs() <= X_RTOL * want.abs() + X_ATOL * scale).all())
+    require(ok and torch.isfinite(x).all().item(),
+            f"rows {start}:{stop} of x differ from the single-rank x beyond rtol {X_RTOL}, "
+            f"atol {X_ATOL} max|x|")
+    return float((x - want).abs().max()) / scale
+
+
+def _counted(group, fn, timer, timing: bool = True):
+    """Run fn() as a counted run: launch counts, collective stats, the peak
+    memory from zero and the phases of `timer` (which fn fills). With
+    `timing` the device is synchronized around every collective, so the
+    collective ms hold the device's share (and the run is slower); without
+    it the phases are the step's own pace. Returns (result, counts, comm,
+    peak_gb, phases_ms)."""
+    import torch
+    from precond_tpu_torch.ops.cuda import _lib
+
+    group.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    group.stats.reset()
+    group.timing = timing
+    t0 = time.perf_counter()
+    try:
+        res = fn()
+        torch.cuda.synchronize()
+    finally:
+        group.timing = False
+    comm = dict(calls=group.stats.calls, bytes=group.stats.bytes,
+                ms=round(1e3 * group.stats.seconds, 3),
+                wall_ms=round(1e3 * (time.perf_counter() - t0), 3))
+    return (res, dict(_lib.launch_counts), comm, torch.cuda.max_memory_allocated() / 1e9,
+            timer.as_dict())
+
+
+def _summary(label: str, rank: int, world: int, runs: list, ref_iters: int, err: float,
+             same: bool) -> dict:
+    """runs: [(PcgResult, counts, comm, peak_gb, phases)] of the counted run
+    (synchronized around each collective) and its repeat (unsynchronized:
+    its ms/iter is the step's pace)."""
+    (res, counts, comm, peak_gb, phases), (_, _, comm2, _, phases2) = runs
+    iters = res.iterations
+    it_ms = phases.get("iterate", 0.0) / max(iters, 1)
+    it2_ms = phases2.get("iterate", 0.0) / max(iters, 1)
+    out = dict(iters=iters, ref_iters=ref_iters, rel=float(res.rel_residual), err=err,
+               counts={k: v for k, v in counts.items() if v}, comm=comm, peak_gb=round(peak_gb, 3),
+               phases=phases, ms_per_iter=round(it_ms, 4), bitwise=same,
+               comm_bytes_per_iter=comm["bytes"] // max(iters, 1), repeat_phases=phases2,
+               repeat_ms_per_iter=round(it2_ms, 4), repeat_comm=comm2)
+    log(f"[{label}] rank {rank}/{world}: iters={iters} (single rank {ref_iters}) "
+        f"rel_residual={out['rel']:.3e} x vs single rank {err:.2e} of max|x|; counted run "
+        f"(synced around each collective): phases_ms={phases} ms_per_iter={it_ms:.3f}, "
+        f"collectives {comm['calls']} calls, {comm['ms']:.1f} ms, "
+        f"{comm['bytes'] / 1e6:.2f} MB sent ({out['comm_bytes_per_iter'] / 1e6:.3f} MB/iter); "
+        f"peak_mem_gb={peak_gb:.2f}; launches {out['counts']}; repeat (unsynced): "
+        f"phases_ms={phases2} ms_per_iter={it2_ms:.3f}, host ms in collectives "
+        f"{comm2['ms']:.1f}; bitwise={same}")
+    return out
+
+
+def job_general(group, args) -> dict:
+    """The general-mesh step over the group: sharded_solve_step at general
+    `size` (packed: K2 per rank; dense: K3 per rank), against solve_step on
+    one rank; K2's or K3's per-rank table against its plain version; the
+    checkpoint round trip from a one-rank save when asked."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.parallel import halo
+    from precond_tpu_torch.parallel.comm import row_range
+    from precond_tpu_torch.parallel.sharded import sharded_solve_step, solve_step
+    from precond_tpu_torch.profiling import PhaseTimer
+    from precond_tpu_torch.solver import compute_sort_maps, prepare_with_system
+
+    mesh = cloth.make_grid(args.size, args.size, z_wave=0.02, mass=0.001, dt=1.0 / 60.0)
+    n = mesh.num_verts
+    ell = cloth.assemble_system(mesh, device=DEVICE)
+    maps = compute_sort_maps(torch.as_tensor(mesh.positions, device=DEVICE))
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32),
+                        device=DEVICE)
+    start, stop = row_range(n, group.world, group.rank)
+    out = {}
+    for variant in args.variants.split(","):
+        cfg = SchwarzConfig(symv_kernel=variant)
+        label = f"sharded general {args.size} {variant}, {group.world} {group.backend} ranks"
+        one = solve_step(ell, maps, b, cfg, max_iters=2000, device=DEVICE)
+        runs = []
+        for timing in (True, False):   # the counted run and an unsynced repeat
+            timer = PhaseTimer()
+            step = sharded_solve_step(group, cfg, max_iters=2000, device=DEVICE, timer=timer)
+            runs.append(_counted(group, lambda: step(ell, maps, b), timer, timing))
+        res, counts, again = runs[0][0], runs[0][1], runs[1][0]
+        same = again.iterations == res.iterations and torch.equal(again.x, res.x)
+        err = _rows_ok(res.x, one.x, start, stop)
+        packed = cfg.use_packed_symv(n)
+        symv = "packed_symv96" if packed else "symv96"
+        out[variant] = _summary(label, group.rank, group.world, runs, one.iterations, err, same)
+        require(abs(res.iterations - one.iterations) <= HALO_BAND and float(res.rel_residual) <= 1e-4,
+                f"{label}: {res.iterations} iterations against {one.iterations} on one rank")
+        require(same, f"{label}: two runs are not bitwise equal")
+        require(counts["spd_inverse96"] == 1 and counts[symv] == 2 * (res.iterations + 1),
+                f"{label}: launches {counts}; expected K1 once and {symv} 2 x (iterations + 1)")
+        # this rank's fine table (its own padded copy) against the plain version
+        state, _ = prepare_with_system(ell, maps, cfg)
+        rows = -(-n // (group.world * 32)) * group.world * 32
+        la = halo.local_apply_state(halo.split_apply_state(state, cfg, n, group.world, rows=rows),
+                                    group.rank, rows // group.world)
+        tag = f"{label} rank {group.rank} fine table"
+        out[variant]["table_err"] = (check_packed_symv_table(la.inv_fine, tag) if packed
+                                     else check_symv(la.inv_fine, tag)[0])
+        out[variant]["table_b"] = int(la.inv_fine.f.shape[2] if packed else la.inv_fine.shape[0])
+        del state, la, one, res, again, runs
+        torch.cuda.empty_cache()
+    if args.dcp_load:
+        out["dcp_from_one"] = dcp_load_rows(args.dcp_load, 3.0, group)
+    return out
+
+
+def job_collide(group, args) -> dict:
+    """Contact on the halo path: the bench's folded sheet at `size`, detected
+    on every rank, prepared with the stencils, solved by halo.solve_sorted
+    with the sorted-space stencils replicated, against the single-rank
+    sorted-space PCG (block-ELL + slot contact SpMV)."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig, SchwarzPreconditioner
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.apply import precondition_sorted
+    from precond_tpu_torch.ops.blockcsr import spmv as ell_spmv
+    from precond_tpu_torch.ops.contact import slot_contact_spmv
+    from precond_tpu_torch.parallel import halo
+    from precond_tpu_torch.parallel.pcg import pcg
+    from precond_tpu_torch.profiling import PhaseTimer
+
+    label = f"halo collide {args.size} (general M), {group.world} {group.backend} ranks"
+    mesh, folded, h = folded_sheet(args.size)
+    n = mesh.num_verts
+    ell = cloth.assemble_system(mesh, positions=folded, device=DEVICE)
+    pos, faces, edges = (torch.as_tensor(a, device=DEVICE) for a in (folded, mesh.faces, mesh.edges))
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32),
+                        device=DEVICE)
+    cfg = SchwarzConfig(coarse_damping=0.25)
+    _, _, st, live = detect_collide(pos, faces, edges, h)
+    ref = SchwarzPreconditioner(cfg, device=DEVICE)
+    ref.allocate(folded)
+    ref.prepare(ell, st)
+    ells, mapped, slots = collide_system(ref, ell, st)
+    bs = b[ref.maps.sorted_to_orig.long()]
+    one = pcg(lambda x: ell_spmv(ells, x) + slot_contact_spmv(mapped, slots, x),
+              lambda r: precondition_sorted(ref.state, r, cfg), bs, tol=1e-4, max_iters=2000)
+    def solve(timer):
+        pre = SchwarzPreconditioner(cfg, device=DEVICE)
+        pre.allocate(folded)
+        with timer.phase("prepare") as ph:
+            pre.prepare(ell, st)
+            ph["sync"] = pre.state.going_next
+        with timer.phase("tables"):
+            hsys = halo.build_halo_system(ells, group.world)
+            sap = halo.split_apply_state(pre.state, cfg, n, group.world)
+        with timer.phase("iterate") as ph:
+            res = halo.solve_sorted(group, cfg, hsys, sap, bs, max_iters=2000, stencils=mapped)
+            ph["sync"] = res.x
+        return res, hsys
+
+    runs = []
+    for timing in (True, False):   # the counted run and an unsynced repeat
+        timer = PhaseTimer()
+        runs.append(_counted(group, lambda: solve(timer), timer, timing))
+    (res, hsys), counts = runs[0][0], runs[0][1]
+    again = runs[1][0][0]
+    runs = [(r[0][0],) + tuple(r[1:]) for r in runs]
+    same = again.iterations == res.iterations and torch.equal(again.x, res.x)
+    per = n // group.world
+    err = _rows_ok(res.x, one.x, group.rank * per, (group.rank + 1) * per)
+    out = _summary(label, group.rank, group.world, runs, one.iterations, err, same)
+    out.update(live=live, halo=hsys.halo, exchange_rows=int(hsys.recv_perm.shape[1]))
+    band = COLLIDE_BAND[0] * one.iterations
+    require(abs(res.iterations - one.iterations) <= band and float(res.rel_residual) <= 1e-4,
+            f"{label}: {res.iterations} iterations against {one.iterations} on one rank "
+            f"(band +-{band:.0f})")
+    require(same, f"{label}: two runs are not bitwise equal")
+    require(counts["spd_inverse96"] == 1 and counts["symv96"] == 2 * (res.iterations + 1),
+            f"{label}: launches {counts}")
+    return out
+
+
+def job_grid(group, args) -> dict:
+    """The grid steps over the group: sharded_grid_solve_step on cloth `size`
+    and sharded_grid_contact_solve_step on the folded sheet at `collide`
+    (K4 and K3 per rank), each against its single-rank step; then the
+    collective checkpoint save of this group when asked."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.contact import build_contact_ell
+    from precond_tpu_torch.parallel import gridsharded as gsh
+    from precond_tpu_torch.profiling import PhaseTimer
+    from precond_tpu_torch.utils import gridmorton as gm
+
+    out = {}
+    for case, side in (("cloth", args.size), ("collide", args.collide)):
+        k = side.bit_length() - 1
+        n = side * side
+        per = n // group.world
+        if case == "cloth":
+            label = f"sharded grid cloth {side}, {group.world} {group.backend} ranks"
+            mesh = cloth.make_grid(side, side, z_wave=0.02, mass=0.001, dt=1.0 / 60.0)
+            pos, cfg = None, SchwarzConfig()
+        else:
+            label = f"sharded grid collide {side} (grid M), {group.world} {group.backend} ranks"
+            mesh, pos, h = folded_sheet(side)
+            cfg = SchwarzConfig(coarse_damping=0.25)
+        ssys = cloth.assemble_system_stencil(mesh, positions=pos, device=DEVICE)
+        dgr, drr, offsets = cloth.assemble_system_grid(mesh, positions=pos, device=DEVICE)
+        b = torch.as_tensor(np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32),
+                            device=DEVICE)
+        timer = PhaseTimer()   # the counted run's
+        if case == "cloth":
+            one = gsh.grid_solve_step(ssys, dgr, drr, b, offsets, k, cfg, max_iters=2000)
+
+            def make(t):
+                return lambda: gsh.sharded_grid_solve_step(
+                    group, cfg, ssys.offsets, k, max_iters=2000, device=DEVICE,
+                    timer=t)(ssys, dgr, drr, b)
+        else:
+            tens = (torch.as_tensor(a, device=DEVICE) for a in (pos, mesh.faces, mesh.edges))
+            _, _, st, live = detect_collide(*tens, h)
+            ce = build_contact_ell(st, n, kc=32)
+            require(int(ce.dropped) == 0, f"{label}: the contact ELL dropped {int(ce.dropped)} pairs")
+            o2s = torch.as_tensor(gm.sort_maps(k)[1], device=DEVICE)
+            one = gsh.grid_contact_solve_step(ssys, dgr, drr, b, st, ce, o2s, offsets, k, cfg,
+                                              max_iters=2000)
+
+            def make(t):
+                return lambda: gsh.sharded_grid_contact_solve_step(
+                    group, cfg, offsets, k, max_iters=2000, device=DEVICE,
+                    timer=t)(ssys, dgr, drr, b, st, ce, o2s)
+        runs = [_counted(group, make(timer), timer)]
+        timer = PhaseTimer()
+        runs.append(_counted(group, make(timer), timer, False))   # an unsynced repeat
+        res, counts, again = runs[0][0], runs[0][1], runs[1][0]
+        same = again.iterations == res.iterations and torch.equal(again.x, res.x)
+        scale = float(one.x.abs().max())
+        want = one.x[group.rank * per: (group.rank + 1) * per]
+        err = float((res.x - want).abs().max()) / scale
+        out[case] = _summary(label, group.rank, group.world, runs, one.iterations, err, same)
+        require(err <= X_ATOL and torch.isfinite(res.x).all().item(),
+                f"{label}: x differs from the single-rank x by {err:.2e} of max|x| "
+                f"(the JAX test's atol {X_ATOL})")
+        require(res.iterations <= one.iterations + GRID_BAND and float(res.rel_residual) <= 1e-4,
+                f"{label}: {res.iterations} iterations against {one.iterations} on one rank")
+        require(same, f"{label}: two runs are not bitwise equal")
+        require(counts["spd_inverse96"] == 1 and counts["stencil_spmv"] == res.iterations + 1
+                and counts["symv96"] == 2 * (res.iterations + 1), f"{label}: launches {counts}")
+        del one, res, again, runs, ssys, dgr, drr
+        torch.cuda.empty_cache()
+    if args.dcp_save:
+        out["dcp_save"] = dcp_save_rows(args.dcp_save, group)
+    return out
+
+
+def _worker_module():
+    """scripts/torch_multiprocess_worker.py, whose checkpoint helpers the DCP
+    phases share with the CPU tests."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_multiprocess_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_multiprocess_worker", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dcp_solver():
+    """The solver state the checkpoint phases carry: general DCP_GRID's."""
+    return _worker_module().dcp_solver(DEVICE, DCP_GRID)
+
+
+def dcp_x(scale: float):
+    """A known x whose rows all differ (a lost shard shows), on the card."""
+    import torch
+
+    return torch.as_tensor(_worker_module().dcp_x(scale, DCP_GRID * DCP_GRID), device=DEVICE)
+
+
+def dcp_save_rows(path: str, group) -> dict:
+    """Collective save: each rank writes only its rows of x (a DTensor
+    Shard(0)) and the replicated solver state; then reads its rows back."""
+    from precond_tpu_torch import SchwarzConfig, SchwarzPreconditioner
+    from precond_tpu_torch.io import sharded as shio
+    from precond_tpu_torch.parallel.comm import row_range
+
+    pre = dcp_solver()
+    x = dcp_x(2.0)
+    start, stop = row_range(x.shape[0], group.world, group.rank)
+    group.barrier()
+    t0 = time.perf_counter()
+    shio.save_solver_sharded(path, pre, x=shio.shard_rows(x[start:stop], x.shape[0]))
+    t1 = time.perf_counter()
+    back = SchwarzPreconditioner(SchwarzConfig(), device=DEVICE)
+    rows = shio.load_solver_sharded(path, back, x_rows=True)
+    t2 = time.perf_counter()
+    same = same_bits(back.state, pre.state) and bool((rows == x[start:stop]).all().item())
+    log(f"[checkpoint DCP {group.world} ranks] rank {group.rank}: saved rows {start}:{stop} of x "
+        f"and the state in {1e3 * (t1 - t0):.1f} ms, read them back in {1e3 * (t2 - t1):.1f} ms; "
+        f"bitwise={same}")
+    require(same, f"DCP {group.world} ranks: rank {group.rank}'s rows or state came back changed")
+    return dict(save_ms=round(1e3 * (t1 - t0), 1), load_ms=round(1e3 * (t2 - t1), 1), same=same)
+
+
+def dcp_load_rows(path: str, scale: float, group) -> dict:
+    """Collective load of a one-rank save onto the group: each rank reads
+    only its rows of x and the whole solver state."""
+    import torch
+    from precond_tpu_torch import SchwarzConfig, SchwarzPreconditioner
+    from precond_tpu_torch.io import sharded as shio
+    from precond_tpu_torch.parallel.comm import row_range
+
+    pre = dcp_solver()
+    x = dcp_x(scale)
+    start, stop = row_range(x.shape[0], group.world, group.rank)
+    back = SchwarzPreconditioner(SchwarzConfig(), device=DEVICE)
+    t0 = time.perf_counter()
+    rows = shio.load_solver_sharded(path, back, x_rows=True)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    same = same_bits(back.state, pre.state) and torch.equal(rows, x[start:stop])
+    log(f"[checkpoint DCP 1 -> {group.world} ranks] rank {group.rank}: rows {start}:{stop} of x and "
+        f"the state in {ms:.1f} ms; bitwise={same}")
+    require(same, f"DCP 1 -> {group.world}: rank {group.rank}'s rows or state differ")
+    return dict(load_ms=round(ms, 1), same=same)
+
+
+JOBS = {"general": job_general, "collide": job_collide, "grid": job_grid}
+
+
+def rank_worker(args) -> int:
+    """One rank of a child job: join the group, run the job, write JSON."""
+    import torch
+
+    from precond_tpu_torch.parallel import hosts
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 8) // args.world))
+    group = hosts.initialize_hosts(args.init, args.world, args.rank, backend=args.backend,
+                                   device=DEVICE)
+    try:
+        result = JOBS[args.rank_worker](group, args)
+    finally:
+        hosts.shutdown_hosts()
+    with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_multirank(args, tmp: str) -> dict:
+    """The multi-rank phases, each a child job: the grid steps on 2 gloo
+    ranks (then their DCP save), the DCP round trips through this process
+    (2 -> 1) and back (1 -> 2), the general step on 2 and 4 gloo ranks
+    (packed and dense) and on 1 NCCL rank, and the halo collide on 4 gloo
+    ranks. Returns the per-rank launch counts by path."""
+    import torch
+    from precond_tpu_torch import SchwarzPreconditioner
+    from precond_tpu_torch.io import sharded as shio
+
+    counts = {}
+
+    def keep(label, results, pick):
+        for r, res in enumerate(results):
+            counts[f"{label} r{r}"] = pick(res)["counts"]
+
+    save2 = os.path.join(tmp, "dcp_w2")
+    grid = run_ranks("grid", 2, "gloo", os.path.join(tmp, "grid2"),
+                     ("--size", str(args.cloth), "--collide", str(args.collide),
+                      "--dcp-save", save2))
+    keep(f"sharded grid cloth {args.cloth} (2 gloo)", grid, lambda r: r["cloth"])
+    keep(f"sharded grid collide {args.collide} (2 gloo)", grid, lambda r: r["collide"])
+    # 2 -> 1: this process, with no process group, reads both ranks' rows
+    pre = dcp_solver()
+    back = SchwarzPreconditioner(pre.cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    x = shio.load_solver_sharded(save2, back)
+    ms = 1e3 * (time.perf_counter() - t0)
+    same = same_bits(back.state, pre.state) and torch.equal(x, dcp_x(2.0))
+    log(f"[checkpoint DCP 2 -> 1] the 2-rank save read whole by one process in {ms:.1f} ms: "
+        f"x ({x.shape[0]} rows from both ranks) and the state bitwise={same}")
+    require(same, "DCP 2 -> 1: the rows or the state differ")
+    save1 = os.path.join(tmp, "dcp_w1")
+    shio.save_solver_sharded(save1, pre, x=dcp_x(3.0))
+    del pre, back, x
+    torch.cuda.empty_cache()
+
+    gen2 = run_ranks("general", 2, "gloo", os.path.join(tmp, "general2"),
+                     ("--size", str(args.grid), "--variants", "dense,packed", "--dcp-load", save1))
+    gen4 = run_ranks("general", 4, "gloo", os.path.join(tmp, "general4"),
+                     ("--size", str(args.grid), "--variants", "packed,dense"))
+    for world, res in ((2, gen2), (4, gen4)):
+        for v in ("packed", "dense"):
+            keep(f"halo general {args.grid} {v} ({world} gloo)", res, lambda r, v=v: r[v])
+    nccl = run_ranks("general", 1, "nccl", os.path.join(tmp, "general1"),
+                     ("--size", str(args.grid), "--variants", "auto"))
+    keep(f"sharded general {args.grid} (1 NCCL)", nccl, lambda r: r["auto"])
+    col = run_ranks("collide", 4, "gloo", os.path.join(tmp, "collide4"),
+                    ("--size", str(args.collide)))
+    keep(f"halo collide {args.collide} (4 gloo)", col, lambda r: r)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # small-input references
 # ---------------------------------------------------------------------------
 
@@ -2029,6 +2503,24 @@ def check_symv_bf16(inv, label: str):
     return max_abs, rhs
 
 
+def ab_pairs(fa, fb, pairs: int = 10, iters: int = 50) -> dict:
+    """`pairs` interleaved timings of fa (A) and fb (B), the order alternating
+    AB, BA, ... so that drift on the card falls on both alike: the medians,
+    spreads (max - min), the median of the per-pair B - A, and how many
+    pairs A won."""
+    import statistics
+
+    a, b = [], []
+    for i in range(pairs):
+        for f in ((fa, fb) if i % 2 == 0 else (fb, fa)):
+            (a if f is fa else b).append(time_ms(f, warmup=3, iters=iters))
+    diff = [y - x for x, y in zip(a, b)]
+    return dict(a_median=statistics.median(a), a_spread=max(a) - min(a),
+                b_median=statistics.median(b), b_spread=max(b) - min(b),
+                b_minus_a_median=statistics.median(diff), a_won=sum(d > 0 for d in diff),
+                pairs=pairs)
+
+
 def kernel_symv_bf16(inv, launches_by_path: dict, path: str, small_inv, small_path: str) -> dict:
     import torch
     from precond_tpu_torch.ops.batched_inverse import apply_block_inverse
@@ -2067,6 +2559,19 @@ def kernel_symv_bf16(inv, launches_by_path: dict, path: str, small_inv, small_pa
         f"torch.bmm {lib if lib is None else f'{lib:.4f}'} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
         f"{small_path} B={small_inv.shape[0]}: kernel {small_ms:.4f} ms, bound "
         f"{small_bound[0]:.4f} ms, torch.bmm {small_lib if small_lib is None else f'{small_lib:.4f}'} ms")
+    # the kernel (A) against torch.bmm(out_dtype=float32) (B) in interleaved pairs
+    ab = {}
+    if lib is not None:
+        for table, rhs in ((inv, rhs), (small_inv, small_rhs)):
+            rb = rhs.to(torch.bfloat16)[:, :, None]
+            res = ab_pairs(lambda: batched_symv(table, rhs),
+                           lambda: torch.bmm(table, rb, out_dtype=torch.float32))
+            ab[str(table.shape[0])] = res
+            log(f"[K3-bf16 symv] A/B B={table.shape[0]}, {res['pairs']} interleaved pairs of 50 "
+                f"launches: kernel median {res['a_median']:.4f} ms (spread {res['a_spread']:.4f}), "
+                f"torch.bmm median {res['b_median']:.4f} ms (spread {res['b_spread']:.4f}), "
+                f"bmm - kernel median {res['b_minus_a_median']:+.4f} ms, kernel won "
+                f"{res['a_won']}/{res['pairs']}")
     return _record("symv96_bf16", "precond_tpu_torch/csrc/symv.cu",
                    "precond_tpu/ops/batched_inverse.py:257", launches_by_path, path, max_abs, ms,
                    plain_ms, bound, lib,
@@ -2076,7 +2581,8 @@ def kernel_symv_bf16(inv, launches_by_path: dict, path: str, small_inv, small_pa
                                  "none: torch.bmm(out_dtype=float32) is refused by this torch"),
                    small=dict(path=small_path, b=int(small_inv.shape[0]), ms=small_ms,
                               bound_ms=small_bound[0], max_abs_err=small_max_abs,
-                              library_ms=small_lib))
+                              library_ms=small_lib),
+                   ab_vs_library=ab)
 
 
 def stencil_bsr(ssys):
@@ -2215,6 +2721,17 @@ def main(argv=None) -> int:
                     help="side of the grid-path cloth (comp-major + dense), and of grid_solve_step")
     ap.add_argument("--collide", type=int, default=256, choices=sorted(JAX_RECORD_COLLIDE),
                     help="side of the folded self-colliding sheet (general and grid paths, ClothSim)")
+    # one rank of a multi-rank phase (the script starts these itself)
+    ap.add_argument("--rank-worker", choices=sorted(JOBS), help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--init", help=argparse.SUPPRESS)
+    ap.add_argument("--backend", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--size", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--variants", default="auto", help=argparse.SUPPRESS)
+    ap.add_argument("--dcp-save", help=argparse.SUPPRESS)
+    ap.add_argument("--dcp-load", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2228,6 +2745,8 @@ def main(argv=None) -> int:
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    if args.rank_worker:
+        return rank_worker(args)
     t_start = time.perf_counter()
 
     smi = nvidia_smi_line()
@@ -2362,6 +2881,23 @@ def main(argv=None) -> int:
                          general_case(f"general {args.dense_grid} bf16", gb_iso)],
                         big_case, tmp)
     run_profiling(cl, os.path.join(here, "build", f"trace_cloth{args.cloth}"))
+
+    # multiple ranks: child processes share the card, so this one lets go of
+    # its own state first
+    import gc
+
+    del big, dense, cl, cl_dense, gss, sim_col, sim_big, soft, gb_iso, cb_big, big_case
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[multi-rank] parent holds {torch.cuda.memory_allocated() / 1e9:.2f} GB before the "
+        f"rank processes start; {smi}")
+    t_mr = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rank_counts = run_multirank(args, tmp)
+    log(f"[multi-rank] all phases {time.perf_counter() - t_mr:.1f} s")
+    for rec in kernels:
+        for path, c in rank_counts.items():
+            rec["launches_by_path"][path] = c.get(rec["name"], 0)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

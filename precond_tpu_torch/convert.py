@@ -20,6 +20,7 @@ from .ops.boxstencil import BoxStencilSystem
 from .ops.cuda.packed_symv import DenseInverseCM, PackedInverse, PackedInverseCM
 from .ops.gridstencil import StencilSystem
 from .ops.stencils import EeSets, EfSets, Stencils, VfSets
+from .parallel.halo import HaloSystem, ShardedApply
 from .solver import SortMaps
 
 
@@ -67,12 +68,8 @@ def apply_state_from_numpy(
     kind = type(inv96).__name__
     if kind == "DenseInverseCM":
         inv = dense_inverse_cm_from_numpy(inv96.m, device=dev)
-    elif hasattr(inv96, "f"):
-        cls = PackedInverseCM if kind == "PackedInverseCM" else PackedInverse
-        inv = cls(f=_t(inv96.f, dev, np.float32), dg=_t(inv96.dg, dev, np.float32),
-                  nb=int(np.asarray(inv96.nb)))
     else:
-        inv = _t(inv96, dev)
+        inv = _inverse(inv96, dev)
     return ApplyState(
         sorted_to_orig=_t(sorted_to_orig, dev, np.int32),
         orig_to_sorted=_t(orig_to_sorted, dev, np.int32),
@@ -84,6 +81,43 @@ def apply_state_from_numpy(
         restrict_pos=_t(restrict_pos, dev, np.int32),
         restrict_pb=_t(restrict_pb, dev, np.int32),
     )
+
+
+def _inverse(inv, dev):
+    """A dense [B,96,96] array, or the JAX PackedInverse / PackedInverseCM
+    (fields f, dg, nb), as the port's table."""
+    if hasattr(inv, "f"):
+        cls = PackedInverseCM if type(inv).__name__ == "PackedInverseCM" else PackedInverse
+        return cls(f=_t(inv.f, dev, np.float32), dg=_t(inv.dg, dev, np.float32),
+                   nb=int(np.asarray(inv.nb)))
+    return _t(inv, dev)
+
+
+def halo_system_from_numpy(diag, idx_ext, blocks, halo, shard_rows, send_idx, recv_perm,
+                           device=None) -> HaloSystem:
+    """parallel.halo.HaloSystem from the JAX HaloSystem's fields (all
+    shards'; parallel.halo.local_halo takes one rank's rows)."""
+    dev = resolve_device(device)
+    return HaloSystem(diag=_t(diag, dev, np.float32), idx_ext=_t(idx_ext, dev, np.int32),
+                      blocks=_t(blocks, dev, np.float32), halo=int(halo),
+                      shard_rows=int(shard_rows), send_idx=_t(send_idx, dev, np.int32),
+                      recv_perm=_t(recv_perm, dev, np.int32))
+
+
+def sharded_apply_from_numpy(going_next_fine, anc1, inv_fine, inv_coarse, going_next_coarse,
+                             n, total_coarse, l1_live=0, num_shards=1,
+                             device=None) -> ShardedApply:
+    """parallel.halo.ShardedApply from the JAX ShardedApply's fields (all
+    shards'; parallel.halo.local_apply_state takes one rank's part). The
+    JAX type does not record the shard count its packed fine table was
+    padded for: pass the `num_shards` given to its split_apply_state."""
+    dev = resolve_device(device)
+    return ShardedApply(going_next_fine=_t(going_next_fine, dev, np.int32),
+                        anc1=_t(anc1, dev, np.int32), inv_fine=_inverse(inv_fine, dev),
+                        inv_coarse=_inverse(inv_coarse, dev),
+                        going_next_coarse=_t(going_next_coarse, dev, np.int32), n=int(n),
+                        total_coarse=int(total_coarse), l1_live=int(l1_live),
+                        num_shards=int(num_shards))
 
 
 def stencil_system_from_numpy(diag_t, dirs_t, offsets, grid, sym=False,

@@ -54,6 +54,10 @@ class StencilSystem:
     def device(self) -> torch.device:
         return self.diag_t.device
 
+    def to(self, device) -> "StencilSystem":
+        return StencilSystem(self.diag_t.to(device), self.dirs_t.to(device), self.offsets,
+                             self.grid, sym=self.sym)
+
 
 def _pad_width(offsets) -> int:
     return max(max(abs(di), abs(dj)) for di, dj in offsets) if offsets else 0

@@ -67,6 +67,12 @@ class PhaseTimer:
         return "\n".join(rows)
 
 
+def phase_of(timer: Optional[PhaseTimer], name: str):
+    """``timer.phase(name)``, or a block that times nothing without a timer
+    (its ``out`` dict is accepted and ignored)."""
+    return timer.phase(name) if timer is not None else contextlib.nullcontext({})
+
+
 @dataclass
 class SolveMetrics:
     """Structured record of one preconditioned solve."""

@@ -11,7 +11,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "scripts", "torch_multiprocess_worker.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "precond_tpu_torch")):
         out += [os.path.join(base, f) for f in sorted(files) if f.endswith(".py")]
     return sorted(out)
@@ -46,5 +47,7 @@ def test_sources_found():
     for mod in ("reference_api.py", "models/collision.py", "models/hashgrid.py",
                 "ops/contact.py", "ops/stencils.py", "utils/scatter.py", "models/simulator.py",
                 "models/tetmesh.py", "ops/boxstencil.py", "utils/boxmorton.py",
-                "profiling.py", "io/checkpoint.py", "io/sharded.py"):
+                "profiling.py", "io/checkpoint.py", "io/sharded.py", "parallel/comm.py",
+                "parallel/hosts.py", "parallel/halo.py", "parallel/sharded.py",
+                "parallel/gridsharded.py"):
         assert os.path.join("precond_tpu_torch", *mod.split("/")) in names, mod

@@ -50,7 +50,9 @@ what comes out against references. It prints, in order:
     every path's blocks and tables, and kernel / plain / library times
     (CUDA events) beside the bound;
   * K3's bf16 entry against its plain version on the bf16 tables, with a
-    bitwise repeat;
+    bitwise repeat, and with NaN written above every table's diagonal
+    (bitwise the same output: it reads only the lower triangle); its time
+    beside the work, sector and dense bounds;
   * checkpoints on the card: save_solver / load_solver of general 1024
     (PackedInverse), cloth 1024 (PackedInverseCM), cloth 256
     (DenseInverseCM) and general 256 bf16 into fresh solvers (state and
@@ -60,7 +62,8 @@ what comes out against references. It prints, in order:
     (SolveMetrics JSON), and a device_trace of one PCG iteration whose
     trace must name K2's and K4's kernels;
   * K3-bf16 against torch.bmm(out_dtype=float32) in 10 interleaved pairs
-    at B = 34,952 and 2,185 (medians and spreads);
+    at B = 34,952 and 2,185 (medians and spreads), launched from the host
+    and replayed from CUDA graphs;
   * multiple ranks, each rank a child process of this script on cuda:0
     (gloo stages its payloads through host memory; NCCL at one rank), each
     against its single-rank step: the sharded grid steps on 2 ranks (cloth
@@ -1456,6 +1459,11 @@ def run_cloth_bf16(f32: dict, tol: float = 1e-4) -> dict:
         f"(held before the run: {held_gb:.2f}); f32: prepare_ms={f32['prepare_ms']:.1f} "
         f"apply_ms={f32['apply_ms']:.3f} ms_per_iter={f32['ms_per_iter']:.3f} "
         f"peak_mem_gb={f32['peak_gb']:.2f} (held: {f32['held_gb']:.2f})")
+    if grid == 1024:
+        log(f"[{label}] dense bf16 apply_ms={apply_ms:.3f} against 0.395 with the earlier "
+            f"symv96_bf16 design (PERF.md); host clock, so launch-bound: the device's "
+            f"share of one apply follows")
+        profile_phase(f"{label} apply", lambda: pre_op(bt), reps=20)
     z = pre_op(bt)
     require(torch.equal(z, pre_op(bt)), f"{label}: apply not bit-reproducible")
     return dict(inv=inv, counts=counts, iters=res.iterations)
@@ -2503,17 +2511,18 @@ def check_symv_bf16(inv, label: str):
     return max_abs, rhs
 
 
-def ab_pairs(fa, fb, pairs: int = 10, iters: int = 50) -> dict:
+def ab_pairs(fa, fb, pairs: int = 10, iters: int = 50, per: int = 1) -> dict:
     """`pairs` interleaved timings of fa (A) and fb (B), the order alternating
     AB, BA, ... so that drift on the card falls on both alike: the medians,
     spreads (max - min), the median of the per-pair B - A, and how many
-    pairs A won."""
+    pairs A won. Each timing is `iters` calls; times are per call / `per`
+    (`per` launches in each call, as in a replayed graph)."""
     import statistics
 
     a, b = [], []
     for i in range(pairs):
         for f in ((fa, fb) if i % 2 == 0 else (fb, fa)):
-            (a if f is fa else b).append(time_ms(f, warmup=3, iters=iters))
+            (a if f is fa else b).append(time_ms(f, warmup=3, iters=iters) / per)
     diff = [y - x for x, y in zip(a, b)]
     return dict(a_median=statistics.median(a), a_spread=max(a) - min(a),
                 b_median=statistics.median(b), b_spread=max(b) - min(b),
@@ -2521,14 +2530,59 @@ def ab_pairs(fa, fb, pairs: int = 10, iters: int = 50) -> dict:
                 pairs=pairs)
 
 
+def graphed(fn, launches: int):
+    """`fn` called `launches` times, captured in one CUDA graph; the result
+    replays it, so a timing holds the device's time and no host launch cost."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    return g.replay
+
+
+def check_symv_bf16_lower_only(inv, rhs, label: str) -> None:
+    """NaN written above the diagonal of every table must change no bit of
+    K3-bf16's output: the kernel reads only the lower triangle and the
+    diagonal, and counts no entry twice."""
+    import torch
+    from precond_tpu_torch.ops.cuda.symv import batched_symv
+
+    upper = torch.triu(torch.ones(96, 96, dtype=torch.bool, device=inv.device), diagonal=1)
+    poisoned = inv.masked_fill(upper, float("nan"))
+    got = batched_symv(poisoned, rhs)
+    finite = bool(torch.isfinite(got).all())
+    same = torch.equal(got, batched_symv(inv, rhs))
+    log(f"[K3-bf16 symv] {label} B={inv.shape[0]}: NaN above the diagonal: output finite={finite}, "
+        f"bitwise equal to the clean table's={same}")
+    require(finite and same, f"K3-bf16 read above the diagonal of the {label} table")
+
+
+def k3bf16_bounds(b: int) -> dict:
+    """K3-bf16's bounds at B tables (ms, H100 SXM data sheet): the work (the
+    lower triangle and diagonal read once, 4,656 bf16, plus the f32 rhs read
+    and z written), the same through 32-byte DRAM sectors (row i's
+    ceil((i+1)/8) 16-byte chunks from a 192-byte-aligned start: 336
+    sectors), and the dense table (the earlier design's bound)."""
+    vec = 2 * 96 * 4
+    flops = 2 * 96 * 96 * b
+    work = bound_ms((4656 * 2 + vec) * b, flops)
+    sectors = sum(-(-(16 * (i // 8 + 1)) // 32) for i in range(96))
+    return dict(work=work, sector=bound_ms((32 * sectors + vec) * b, flops)[0],
+                dense=bound_ms((96 * 96 * 2 + vec) * b, flops)[0], sectors=sectors)
+
+
 def kernel_symv_bf16(inv, launches_by_path: dict, path: str, small_inv, small_path: str) -> dict:
     import torch
     from precond_tpu_torch.ops.batched_inverse import apply_block_inverse
-    from precond_tpu_torch.ops.cuda.symv import batched_symv
-
-    def bound_of(b):
-        # the bf16 table, the f32 rhs read and the f32 z written
-        return bound_ms((96 * 96 * 2 + 2 * 96 * 4) * b, 2 * 96 * 96 * b)
+    from precond_tpu_torch.ops.cuda.symv import batched_symv, bf16_grid
 
     def lib_ms(table, rhs):
         """torch.bmm with f32 output on the bf16 table and the rhs rounded
@@ -2545,44 +2599,73 @@ def kernel_symv_bf16(inv, launches_by_path: dict, path: str, small_inv, small_pa
         log(f"[K3-bf16 symv] torch.bmm(out_dtype=float32) vs kernel max abs {diff:.3e}")
         return time_ms(lambda: torch.bmm(table, rb, out_dtype=torch.float32), warmup=10, iters=200)
 
+    grid, per_sm = bf16_grid()
+    log(f"[K3-bf16 symv] persistent grid {grid} thread blocks ({per_sm} per SM), one table "
+        f"each at a time; ptxas: {ptxas_facts('symv96_bf16_kernel') or 'no entry in the build log'}")
     bsz = inv.shape[0]
     max_abs, rhs = check_symv_bf16(inv, path)
+    check_symv_bf16_lower_only(inv, rhs, path)
     ms = time_ms(lambda: batched_symv(inv, rhs), warmup=10, iters=200)
     plain_ms = time_ms(lambda: apply_block_inverse(inv, rhs), warmup=3, iters=20)
     lib = lib_ms(inv, rhs)
-    bound = bound_of(bsz)
+    bounds = k3bf16_bounds(bsz)
     small_max_abs, small_rhs = check_symv_bf16(small_inv, small_path)
+    check_symv_bf16_lower_only(small_inv, small_rhs, small_path)
     small_ms = time_ms(lambda: batched_symv(small_inv, small_rhs), warmup=10, iters=200)
-    small_bound = bound_of(small_inv.shape[0])
+    small_bounds = k3bf16_bounds(small_inv.shape[0])
     small_lib = lib_ms(small_inv, small_rhs)
-    log(f"[K3-bf16 symv] {path} B={bsz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.bmm {lib if lib is None else f'{lib:.4f}'} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
-        f"{small_path} B={small_inv.shape[0]}: kernel {small_ms:.4f} ms, bound "
-        f"{small_bound[0]:.4f} ms, torch.bmm {small_lib if small_lib is None else f'{small_lib:.4f}'} ms")
-    # the kernel (A) against torch.bmm(out_dtype=float32) (B) in interleaved pairs
-    ab = {}
+    for label, b, t, bd, lb in ((path, bsz, ms, bounds, lib),
+                                (small_path, small_inv.shape[0], small_ms, small_bounds, small_lib)):
+        log(f"[K3-bf16 symv] {label} B={b}: kernel {t:.4f} ms; bounds: work {bd['work'][0]:.4f} ms "
+            f"({bd['work'][1]}; {100 * bd['work'][0] / t:.1f}% reached), {bd['sectors']} sectors "
+            f"{bd['sector']:.4f} ms ({100 * bd['sector'] / t:.1f}%), dense {bd['dense']:.4f} ms; "
+            f"torch.bmm {lb if lb is None else f'{lb:.4f}'} ms"
+            + (f"; plain {plain_ms:.4f} ms" if b == bsz else ""))
+    # the kernel (A) against torch.bmm(out_dtype=float32) (B) in interleaved
+    # pairs: launched from the host one by one as the main path does, and
+    # replayed from CUDA graphs of 20 launches (the devices' times: at B =
+    # 2,185 both calls take less time on the card than to launch from Python)
+    ab, ab_dev = {}, {}
     if lib is not None:
-        for table, rhs in ((inv, rhs), (small_inv, small_rhs)):
-            rb = rhs.to(torch.bfloat16)[:, :, None]
-            res = ab_pairs(lambda: batched_symv(table, rhs),
-                           lambda: torch.bmm(table, rb, out_dtype=torch.float32))
-            ab[str(table.shape[0])] = res
-            log(f"[K3-bf16 symv] A/B B={table.shape[0]}, {res['pairs']} interleaved pairs of 50 "
-                f"launches: kernel median {res['a_median']:.4f} ms (spread {res['a_spread']:.4f}), "
-                f"torch.bmm median {res['b_median']:.4f} ms (spread {res['b_spread']:.4f}), "
-                f"bmm - kernel median {res['b_minus_a_median']:+.4f} ms, kernel won "
-                f"{res['a_won']}/{res['pairs']}")
-    return _record("symv96_bf16", "precond_tpu_torch/csrc/symv.cu",
+        for table, rhs_ in ((inv, rhs), (small_inv, small_rhs)):
+            rb = rhs_.to(torch.bfloat16)[:, :, None]
+
+            def kern():
+                return batched_symv(table, rhs_)
+
+            def bmm():
+                return torch.bmm(table, rb, out_dtype=torch.float32)
+
+            key = str(table.shape[0])
+            for how, out, res in (
+                    ("host-launched", ab, ab_pairs(kern, bmm)),
+                    ("graph-replayed", ab_dev,
+                     ab_pairs(graphed(kern, 20), graphed(bmm, 20), iters=10, per=20))):
+                out[key] = res
+                log(f"[K3-bf16 symv] A/B B={table.shape[0]}, {res['pairs']} interleaved pairs, "
+                    f"{how}: kernel median {res['a_median']:.4f} ms (spread "
+                    f"{res['a_spread']:.4f}), torch.bmm median {res['b_median']:.4f} ms (spread "
+                    f"{res['b_spread']:.4f}), bmm - kernel median {res['b_minus_a_median']:+.4f} "
+                    f"ms, kernel won {res['a_won']}/{res['pairs']}")
+            torch.cuda.synchronize()
+    return _record("symv96_bf16", "precond_tpu_torch/csrc/symv_bf16.cu",
                    "precond_tpu/ops/batched_inverse.py:257", launches_by_path, path, max_abs, ms,
-                   plain_ms, bound, lib,
+                   plain_ms, bounds["work"], lib,
+                   bound_note=("the lower triangle and diagonal read once (the kernel's work); "
+                               "sector_bound_ms through 32-byte sectors, dense_bound_ms the "
+                               "whole table"),
+                   sector_bound_ms=bounds["sector"], dense_bound_ms=bounds["dense"],
+                   grid=dict(blocks=grid, per_sm=per_sm),
                    library_call=("torch.bmm(out_dtype=float32) on the bf16 table and the rhs "
                                  "rounded beforehand (no single call takes the f32 rhs)"
                                  if lib is not None else
                                  "none: torch.bmm(out_dtype=float32) is refused by this torch"),
                    small=dict(path=small_path, b=int(small_inv.shape[0]), ms=small_ms,
-                              bound_ms=small_bound[0], max_abs_err=small_max_abs,
+                              bound_ms=small_bounds["work"][0],
+                              sector_bound_ms=small_bounds["sector"],
+                              dense_bound_ms=small_bounds["dense"], max_abs_err=small_max_abs,
                               library_ms=small_lib),
-                   ab_vs_library=ab)
+                   ab_vs_library=ab, ab_vs_library_graphs=ab_dev)
 
 
 def stencil_bsr(ssys):

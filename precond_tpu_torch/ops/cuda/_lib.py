@@ -53,6 +53,9 @@ _SIGNATURES = {
     "packed_symv96": (_VP, _VP, _VP, _VP, _I, _VP),
     "symv96": (_VP, _VP, _VP, _I, _VP),
     "symv96_bf16": (_VP, _VP, _VP, _I, _VP),    # bf16 table, f32 rhs and z
+    # no launch: K3-bf16's persistent grid and its blocks per SM (out int*);
+    # symv96_bf16 sizes its grid itself, from the SM count and the occupancy
+    "symv96_bf16_grid": (_IP, _IP),
     # diag, dirs, x, y, nx, ny, nd, host int[2*nd] offsets, stream
     "stencil_spmv": (_VP, _VP, _VP, _VP, _I, _I, _I, _IP, _VP),
     # no launch: K1's shared memory per block and blocks per SM (out int*)
@@ -153,13 +156,21 @@ def check_operand(name: str, t, shape, what: str, device, dtype=None) -> None:
 def launch(name: str, device, *args) -> None:
     """Call C entry `name` on `device`'s current stream; raise on a nonzero
     cudaError_t (a refused launch never runs, and no later synchronize
-    reports it)."""
+    reports it).
+
+    The stream comes from torch's raw getter, and the device is switched
+    only when it is not the current one: ``torch.cuda.current_stream(...)``
+    and ``torch.cuda.device(...)`` cost more host time than a small launch
+    takes on the card (PERF.md §6)."""
     import torch
 
     lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, name)(*args, stream)
+    index = device.index
+    if index == torch.cuda.current_device():
+        code = getattr(lib, name)(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = getattr(lib, name)(*args, torch._C._cuda_getCurrentRawStream(index))
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {code}")
     launch_counts[name] += 1

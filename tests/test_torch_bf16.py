@@ -9,6 +9,9 @@
     bf16 and the products summed in f32 in both, so only the order of the
     f32 sums differs;
   * the guards on a bf16 table;
+  * every bf16 table is bitwise symmetric (the general, grid and box
+    prepares under both inverse routes, and a JAX table carried across by
+    convert): the card's symv96_bf16 reads only the lower triangle;
   * tests/test_precond_oracle.py's 24x24 per_axis case: bf16 converges
     within 2 * its_f32 + 10 (the JAX test's own allowance), and each count
     within 3 iterations of JAX's on the same system.
@@ -98,6 +101,42 @@ def test_factorize_bf16_box():
     f32 = prepare_box(dg, dr, boxstencil.BOX_OFFSETS, dims, SchwarzConfig())
     bf = prepare_box(dg, dr, boxstencil.BOX_OFFSETS, dims, BF16)
     assert bf.dtype == torch.bfloat16 and torch.equal(bf, f32.to(torch.bfloat16))
+
+
+def _bf16_table(path, inverse_kernel):
+    cfg = SchwarzConfig(inverse_dtype="bfloat16", inverse_kernel=inverse_kernel)
+    if path == "general":
+        mesh = cloth.make_grid(32, 32, z_wave=0.02)
+        pre = SchwarzPreconditioner(cfg, device="cpu")
+        pre.allocate(mesh.positions)
+        pre.prepare(cloth.assemble_system(mesh, device="cpu"))
+        return pre.state.inv96
+    if path == "grid":
+        mesh = cloth.make_grid(32, 32, z_wave=0.02, mass=0.001, dt=1.0 / 60.0)
+        inv = prepare_grid(*cloth.assemble_system_grid(mesh, device="cpu"), 5, cfg)
+        assert isinstance(inv, DenseInverseCM)
+        return inv.m
+    if path == "box":
+        dims = (8, 8, 4)
+        mesh = tetmesh.make_box(*dims, mass=0.05, youngs=5e4)
+        dg, dr = boxstencil.planes_from_ell(tetmesh.assemble_system(mesh, device="cpu"), dims)
+        return prepare_box(dg, dr, boxstencil.BOX_OFFSETS, dims, cfg)
+    # a JAX bf16 state carried across by convert
+    mesh = jcloth.make_grid(32, 32, z_wave=0.02)
+    jpre = JaxPre(JaxConfig(inverse_dtype="bfloat16", inverse_kernel=inverse_kernel))
+    jpre.allocate(mesh.positions)
+    jpre.prepare(jcloth.assemble_system(mesh))
+    return convert.apply_state_from_numpy(*jpre.state, device="cpu").inv96
+
+
+@pytest.mark.parametrize("inverse_kernel", ["panel", "xla"])
+@pytest.mark.parametrize("path", ["general", "grid", "box", "jax_convert"])
+def test_bf16_tables_bitwise_symmetric(path, inverse_kernel):
+    """The precondition of the card's symv96_bf16, which reads only the lower
+    triangle and the diagonal of each table."""
+    m = _bf16_table(path, inverse_kernel)
+    assert m.dtype == torch.bfloat16 and m.dim() == 3 and m.shape[1:] == (96, 96)
+    assert torch.equal(m, m.transpose(1, 2))
 
 
 @pytest.mark.parametrize("b", [1, 7, 300])

@@ -206,12 +206,25 @@ def test_symv_kernel_matches_plain(cuda, b):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
 
 
-# B = 1 and 5: fewer blocks than one thread block's 8 warps; 4,097 not a
-# multiple of 8, so the last thread block is ragged
-@pytest.mark.parametrize("b", [1, 5, 300, 4097])
+def _bf16_b(b):
+    """A bf16 test size: an int, or "grid-1" / "grid+1" around the kernel's
+    persistent grid (thread blocks x one table each = one round), which is
+    known only on the card."""
+    if isinstance(b, int):
+        return b
+    from precond_tpu_torch.ops.cuda.symv import bf16_grid
+
+    return bf16_grid()[0] + int(b[4:])
+
+
+# B = 1 and 5: fewer tables than thread blocks; 19 and 300 one partial
+# round; 2,185 (general 256) and 4,097 several rounds, the last ragged;
+# one table below and above a full round of the persistent grid
+@pytest.mark.parametrize("b", [1, 5, 19, 300, 2185, 4097, "grid-1", "grid+1"])
 def test_symv_bf16_kernel_matches_plain(cuda, b):
     """K3's bf16 entry: z = inv bf16(r) with f32 sums, against the plain
     einsum of the widened operands (only the order of the f32 sums differs)."""
+    b = _bf16_b(b)
     inv = torch.as_tensor(_sym(b, seed=8), device=cuda).to(torch.bfloat16)
     rhs = torch.as_tensor(np.random.default_rng(9).standard_normal((b, 96)).astype(np.float32),
                           device=cuda)
@@ -229,6 +242,43 @@ def test_symv_bf16_kernel_matches_plain(cuda, b):
     assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("b", [1, 300, 2185])
+def test_symv_bf16_kernel_reads_only_the_lower_triangle(cuda, b):
+    """NaN above the diagonal changes no bit of z: the kernel reads the lower
+    triangle and the diagonal only, and counts no entry twice."""
+    inv = torch.as_tensor(_sym(b, seed=10), device=cuda).to(torch.bfloat16)
+    rhs = torch.as_tensor(np.random.default_rng(11).standard_normal((b, 96)).astype(np.float32),
+                          device=cuda)
+    clean = batched_symv(inv, rhs)
+    upper = torch.triu(torch.ones(96, 96, dtype=torch.bool, device=cuda), diagonal=1)
+    poisoned = inv.masked_fill(upper, float("nan"))
+    got = batched_symv(poisoned, rhs)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, clean)
+    want = apply_block_inverse(inv, rhs)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_symv_bf16_kernel_through_dense_symv_cm(cuda):
+    """A bf16 DenseInverseCM (the grid path's comp-major table) through
+    dense_symv_cm against the plain einsum of the same table."""
+    from precond_tpu_torch.ops.cuda.packed_symv import DenseInverseCM, dense_cm, dense_symv_cm
+
+    b = 300
+    table = dense_cm(torch.as_tensor(_sym(b, seed=12), device=cuda)).m.to(torch.bfloat16)
+    assert torch.equal(table, table.transpose(1, 2))
+    inv = DenseInverseCM(m=table)
+    rs3 = torch.as_tensor(
+        np.random.default_rng(13).standard_normal((3, b, 32)).astype(np.float32), device=cuda)
+    before = _lib.launch_counts["symv96_bf16"]
+    got = dense_symv_cm(inv, rs3)
+    assert _lib.launch_counts["symv96_bf16"] == before + 1
+    want = apply_block_inverse(table, rs3.permute(1, 0, 2).reshape(b, 96))
+    want = want.reshape(b, 3, 32).permute(1, 0, 2)
+    assert got.shape == (3, b, 32)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def test_symv_rejects_other_dtypes(cuda):
     inv = torch.zeros((2, 96, 96), dtype=torch.float16, device=cuda)
     before = dict(_lib.launch_counts)
@@ -236,10 +286,17 @@ def test_symv_rejects_other_dtypes(cuda):
         batched_symv(inv, torch.zeros((2, 96), device=cuda))
     with pytest.raises(ValueError, match="float32"):
         batched_symv(inv.to(torch.bfloat16), torch.zeros((2, 96), device=cuda).double())
-    flat = torch.zeros(2 * 96 * 96 + 1, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="4-byte"):
-        batched_symv(flat[1:].view(2, 96, 96), torch.zeros((2, 96), device=cuda))
+    # symv96_bf16 copies 16-byte chunks: a table 2 or 8 bytes off is refused
+    flat = torch.zeros(2 * 96 * 96 + 8, dtype=torch.bfloat16, device=cuda)
+    for skip in (1, 4):
+        with pytest.raises(ValueError, match="16-byte"):
+            batched_symv(flat[skip:skip + 2 * 96 * 96].view(2, 96, 96),
+                         torch.zeros((2, 96), device=cuda))
     assert _lib.launch_counts == before
+    # 16 bytes off is aligned, and runs
+    z = batched_symv(flat[8:].view(2, 96, 96), torch.zeros((2, 96), device=cuda))
+    assert _lib.launch_counts["symv96_bf16"] == before["symv96_bf16"] + 1
+    assert torch.equal(z, torch.zeros_like(z))
 
 
 def _cloth_stencil(nx, ny, cuda, pin_rows=0):

@@ -76,6 +76,11 @@ what comes out against references. It prints, in order:
     single-rank x, launch counts, prepare ms, ms/iter, time and bytes in
     collectives, peak memory, a bitwise repeat, and the rank's own fine
     table through K2 or K3 against the plain version;
+  * the port's bench, bench_torch.run_config, on the seven configs of
+    bench.py's default list with 2 solve reps: one "[bench] " line per
+    config with bench.py's fields, its launch counts and wall; each row held
+    to the JAX records' nnz counts (equal) and iteration bands, with both
+    residuals at most 1e-4;
   * one JSON line of kernel records, the nvidia-smi name/power line, and a
     last JSON line {"ok": true, "device": {...}}.
 
@@ -158,6 +163,21 @@ JAX_RECORD_BF16 = {("general", 256, "isotropic"): (2000, False),
                    ("cloth", 1024, None): (2000, False)}
 # accepted band around a converged bf16 record: +-max(abs, rel * count)
 BF16_BAND = (5, 0.10)
+# The JAX bench's (nnz_spmv, nnz_apply) per (config, grid): BENCH_r04.json
+# (cloth 256, 1024), BENCH_r05.json (general 256, tet 64) and tet 48's from
+# the same count on the host structure. general 1024 is cloth 1024's mesh and
+# block count (B = 34,952, packed), so it reads cloth 1024's counts. The
+# counts do not depend on the chip; bench_torch.py must print them exactly.
+JAX_RECORD_BENCH_NNZ = {("general", 256): (7621668, 20136960),
+                        ("general", 1024): (122499108, 164414208),
+                        ("cloth", 256): (7621668, 20136960),
+                        ("cloth", 1024): (122499108, 164414208),
+                        ("tet", 48): (12568608, 33979392),
+                        ("tet", 64): (30010752, 41103552)}
+# bench.py's default config list, which the bench phase runs in order
+BENCH_SPECS = (("collide", 256), ("tet", 48), ("tet", 64), ("general", 256),
+               ("general", 1024), ("cloth", 256), ("cloth", 1024))
+BENCH_REPS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -2067,6 +2087,81 @@ def run_multirank(args, tmp: str) -> dict:
     return counts
 
 
+def bench_bands(config: str, grid: int) -> tuple:
+    """Accepted (lo, hi) Schwarz and Jacobi iterations of a bench_torch row:
+    the bands this script holds each path's own run to, around the same JAX
+    records. The bench tests convergence every 8 iterations, so the collide
+    sheet's relative bands (its record tests every iteration) end at the next
+    multiple of 8."""
+    if config == "collide":
+        rec = JAX_RECORD_COLLIDE_GRID[grid][:2]
+        return tuple((r * (1 - b), -(-r * (1 + b) // 8) * 8) for r, b in zip(rec, COLLIDE_BAND))
+    rec = {"general": JAX_RECORD_ITERS, "cloth": JAX_RECORD_ITERS_CLOTH,
+           "tet": JAX_RECORD_ITERS_TET}[config][grid]
+    return tuple((r - b, r + b) for r, b in zip(rec, CLOTH_BAND))
+
+
+def bench_row_faults(row: dict) -> list:
+    """What is wrong with one bench_torch row, against the JAX records."""
+    import math
+
+    if "error" in row:
+        return [f"error {row['error']}"]
+    faults = []
+    for key in ("schwarz_rel", "jacobi_rel"):
+        if not (math.isfinite(row[key]) and row[key] <= 1e-4):
+            faults.append(f"{key} {row[key]}")
+    if not row["value"] > 0:
+        faults.append(f"value {row['value']}")
+    spec = (row["config"], row["grid"])
+    for key, (lo, hi) in zip(("schwarz_iters", "jacobi_iters"), bench_bands(*spec)):
+        if not lo <= row[key] <= hi:
+            faults.append(f"{key} {row[key]} outside [{lo:g}, {hi:g}]")
+    want = JAX_RECORD_BENCH_NNZ.get(spec)
+    if want and (row["nnz_spmv"], row["nnz_apply"]) != want:
+        faults.append(f"nnz {row['nnz_spmv']} / {row['nnz_apply']}, JAX record {want[0]} / {want[1]}")
+    return faults
+
+
+def run_bench(specs) -> dict:
+    """The port's bench (bench_torch.run_config) on each (config, grid), on
+    the card, with BENCH_REPS solve reps; prints each row, its launch counts
+    and wall, and fails if any row errs or leaves the JAX records. Returns
+    the launch counts by path."""
+    import bench_torch
+    from precond_tpu_torch.ops.cuda import _lib
+
+    counts, faults = {}, []
+    saved = os.environ.get("BENCH_SOLVE_REPS")
+    os.environ["BENCH_SOLVE_REPS"] = str(BENCH_REPS)
+    try:
+        for config, grid in specs:
+            _lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                row = bench_torch.run_config(config, grid)
+            except Exception as e:  # noqa: BLE001 -- every config runs; the fault fails below
+                row = {"metric": "pcg_iteration_nnz_throughput", "config": config, "grid": grid,
+                       "error": f"{type(e).__name__}: {e}"[:300]}
+            wall = time.perf_counter() - t0
+            path = f"bench {config} {grid}"
+            counts[path] = dict(_lib.launch_counts)
+            log(f"[bench] {json.dumps(row)}")
+            bad = bench_row_faults(row)
+            if "error" not in row and counts[path]["spd_inverse96"] < 1:
+                bad.append("the inverse kernel never launched")
+            log(f"[bench launches] {path}: {counts[path]}; run_config {wall:.1f} s; "
+                f"{'; '.join(bad) if bad else 'held to the JAX records'}")
+            faults += [f"{path}: {b}" for b in bad]
+    finally:
+        if saved is None:
+            os.environ.pop("BENCH_SOLVE_REPS")
+        else:
+            os.environ["BENCH_SOLVE_REPS"] = saved
+    require(not faults, "bench: " + "; ".join(faults))
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # small-input references
 # ---------------------------------------------------------------------------
@@ -2978,8 +3073,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         rank_counts = run_multirank(args, tmp)
     log(f"[multi-rank] all phases {time.perf_counter() - t_mr:.1f} s")
+    t_bench = time.perf_counter()
+    bench_counts = run_bench(BENCH_SPECS)
+    log(f"[bench] all configs {time.perf_counter() - t_bench:.1f} s")
     for rec in kernels:
-        for path, c in rank_counts.items():
+        for path, c in {**rank_counts, **bench_counts}.items():
             rec["launches_by_path"][path] = c.get(rec["name"], 0)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

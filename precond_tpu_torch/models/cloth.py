@@ -110,6 +110,16 @@ def make_grid(nx: int, ny: int, size: float = 1.0, mass: float = 1.0, dt: float 
     )
 
 
+def adjacency_from_springs(num_verts: int, springs: np.ndarray) -> list[np.ndarray]:
+    """Vertex adjacency lists (the reference's m_neighbours CSR, h:51): the
+    sorted distinct spring partners of each vertex, i32."""
+    s = np.asarray(springs, np.int64).reshape(-1, 2)
+    key = np.unique(np.concatenate([s[:, 0] * num_verts + s[:, 1],
+                                    s[:, 1] * num_verts + s[:, 0]]))
+    cols = (key % num_verts).astype(np.int32)
+    return np.split(cols, np.searchsorted(key // num_verts, np.arange(1, num_verts)))
+
+
 def spring_hessian_blocks(positions: torch.Tensor, springs: torch.Tensor,
                           stiffness: torch.Tensor) -> torch.Tensor:
     """Per-spring Gauss-Newton 3x3 block k * d d^T. [S,3,3]."""

@@ -3,7 +3,8 @@
 The port's own copy of ``precond_tpu/native.py``: it builds
 ``native/libprecond_host.so`` the same way (``make -C native``) on first use
 and falls back to vectorized NumPy when the toolchain is unavailable. This
-is host-side setup (COO->ELL packing, element adjacency), not device work.
+is host-side setup (COO->ELL packing, element adjacency, the host Morton
+argsort), not device work.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.pairs_to_adjacency_ell.restype = ctypes.c_int
     lib.pairs_to_adjacency_ell.argtypes = [ctypes.c_int, ctypes.c_longlong, i32p, i32p,
                                            ctypes.c_int, i32p, u8p]
+    lib.morton_argsort.restype = None
+    lib.morton_argsort.argtypes = [ctypes.c_int, f32p, i32p]
     lib.elements_to_pairs.restype = ctypes.c_longlong
     lib.elements_to_pairs.argtypes = [ctypes.c_longlong, ctypes.c_int, i32p,
                                       ctypes.c_longlong, i32p, i32p]
@@ -51,6 +54,11 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def _ptr(a: np.ndarray, ct):
     return a.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def have_native() -> bool:
+    """Whether the native library built and loaded."""
+    return _load() is not None
 
 
 def coo_to_ell(
@@ -100,6 +108,23 @@ def coo_to_ell(
     blocks[urows, slot] = summed
     mask[urows, slot] = True
     return idx, blocks.reshape(n, k, 3, 3), mask
+
+
+def morton_argsort(positions: np.ndarray) -> np.ndarray:
+    """Host 63-bit Morton argsort of f32[N,3] positions, each axis scaled to
+    the unit interval by its own extent (native; NumPy fallback). -> i32[N]."""
+    positions = np.ascontiguousarray(positions, np.float32)
+    n = len(positions)
+    lib = _load()
+    if lib is not None:
+        perm = np.empty(n, np.int32)
+        lib.morton_argsort(n, _ptr(positions, ctypes.c_float), _ptr(perm, ctypes.c_int))
+        return perm
+    from .utils.morton import encode_np
+
+    lo = positions.min(0)
+    ext = np.where(np.ptp(positions, 0) > 0, np.ptp(positions, 0), 1.0)
+    return np.argsort(encode_np((positions - lo) / ext), kind="stable").astype(np.int32)
 
 
 def elements_to_adjacency_ell(n: int, elems: np.ndarray,

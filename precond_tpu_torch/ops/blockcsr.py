@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.scatter import accumulate_rows
 
 
 class BlockEll(NamedTuple):
@@ -73,6 +74,23 @@ def from_coo(
         blocks=torch.as_tensor(blocks, device=dev),
         mask=torch.as_tensor(mask, device=dev),
     )
+
+
+def scatter_accumulate(size: int, tgt: torch.Tensor, vals: torch.Tensor,
+                       unique: bool = False) -> torch.Tensor:
+    """out[tgt[e]] += vals[e] into a zero [size, ...] array, as the JAX
+    package's ``.at[tgt].add(mode="drop")``: a target in [-size, 0) counts
+    from the end, any other target outside [0, size) is dropped. The
+    placement is ``accumulate_rows`` (deterministic, never an atomic float
+    add), with the dropped entries removed before it. `unique` is JAX's
+    hint that no target repeats; it changes no result."""
+    del unique
+    vals = vals.reshape((-1,) + vals.shape[tgt.dim():])
+    tgt = tgt.reshape(-1).long()
+    tgt = torch.where(tgt < 0, tgt + size, tgt)
+    out = vals.new_zeros((size,) + vals.shape[1:])
+    accumulate_rows(out, tgt, vals, valid=torch.ones_like(tgt, dtype=torch.bool))
+    return out
 
 
 def spmv(h: BlockEll, x: torch.Tensor) -> torch.Tensor:

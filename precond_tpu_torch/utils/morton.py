@@ -5,11 +5,13 @@ ExpandBits, SeMorton.h:75-101): each axis is clamped to [0, 2^21-1] after
 scaling by 2^21, expanded by inserting two zeros after every bit, and
 interleaved as (x<<2) + (y<<1) + z. The 63-bit key fits one int64, so one
 stable sort gives the order the JAX package gets from its two-pass
-(hi, lo) uint32 sort.
+(hi, lo) uint32 sort. ``encode_np`` gives the same keys as uint64 for
+NumPy input (host setup and the native bridge's fallback).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PRECISION_BITS = 21  # per axis; 3*21 = 63-bit keys (SeMorton.h:59)
@@ -42,6 +44,11 @@ def encode(unit_pos: torch.Tensor) -> torch.Tensor:
     yy = _expand_bits(q[..., 1])
     zz = _expand_bits(q[..., 2])
     return (xx << 2) + (yy << 1) + zz
+
+
+def encode_np(unit_pos: np.ndarray) -> np.ndarray:
+    """``encode`` for a NumPy array, on the host, as uint64. [N,3] -> [N]."""
+    return encode(torch.from_numpy(np.ascontiguousarray(unit_pos))).numpy().astype(np.uint64)
 
 
 def argsort_morton(unit_pos: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Import hygiene: the port and chip_smoke.py never import JAX, the JAX
-package (precond_tpu_torch itself excepted) or JAX's dependencies that the
-card's machine lacks (ml_dtypes, orbax)."""
+"""Import hygiene: the port, chip_smoke.py and bench_torch.py never import
+JAX, the JAX package (precond_tpu_torch itself excepted) or JAX's
+dependencies that the card's machine lacks (ml_dtypes, orbax); bench_torch.py
+does not import chip_smoke.py either."""
 
 import ast
 import os
@@ -11,15 +12,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py"),
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "bench_torch.py"),
            os.path.join(ROOT, "scripts", "torch_multiprocess_worker.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "precond_tpu_torch")):
         out += [os.path.join(base, f) for f in sorted(files) if f.endswith(".py")]
     return sorted(out)
 
 
-def _forbidden(name: str) -> bool:
+def _forbidden(name: str, path: str) -> bool:
     top = name.split(".")[0]
+    if top == "chip_smoke":
+        return os.path.basename(path) == "bench_torch.py"
     return top in ("jax", "jaxlib", "precond_tpu", "ml_dtypes", "orbax")
 
 
@@ -30,20 +33,23 @@ def test_no_jax_imports(path):
     bad = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            bad += [a.name for a in node.names if _forbidden(a.name)]
+            bad += [a.name for a in node.names if _forbidden(a.name, path)]
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            if _forbidden(node.module):
+            if _forbidden(node.module, path):
                 bad.append(node.module)
         elif isinstance(node, ast.Call) and getattr(node.func, "id", "") == "__import__":
             arg = node.args[0] if node.args else None
-            if isinstance(arg, ast.Constant) and _forbidden(str(arg.value)):
+            if isinstance(arg, ast.Constant) and _forbidden(str(arg.value), path):
                 bad.append(arg.value)
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
 def test_sources_found():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
-    assert "chip_smoke.py" in names and os.path.join("precond_tpu_torch", "solver.py") in names
+    assert "chip_smoke.py" in names and "bench_torch.py" in names
+    assert _forbidden("chip_smoke", os.path.join(ROOT, "bench_torch.py"))
+    assert not _forbidden("chip_smoke", os.path.join(ROOT, "scripts", "x.py"))
+    assert os.path.join("precond_tpu_torch", "solver.py") in names
     for mod in ("reference_api.py", "models/collision.py", "models/hashgrid.py",
                 "ops/contact.py", "ops/stencils.py", "utils/scatter.py", "models/simulator.py",
                 "models/tetmesh.py", "ops/boxstencil.py", "utils/boxmorton.py",

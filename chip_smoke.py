@@ -81,6 +81,19 @@ what comes out against references. It prints, in order:
     config with bench.py's fields, its launch counts and wall; each row held
     to the JAX records' nnz counts (equal) and iteration bands, with both
     residuals at most 1e-4;
+  * the north star, a 2048^2 cloth (4,194,304 vertices, 5 levels of which
+    the apply uses 4), last: scripts/torch_scaling_capacity.py's halo path
+    on one rank, capped at the JAX record's count (BASELINE.md's capped run:
+    iterations equal, rel_residual within 1%), capped at 12, and to 1e-4 on
+    the same state; scripts/torch_pod_solve.py on one rank in this process
+    and as one NCCL rank per visible card in child processes (iterations
+    within the halo band); the capacity run on 2 gloo ranks sharing the
+    card (each rank's residual against one rank's, each rank's peak
+    memory); the cloth 2048 bench row (1 rep: converged, nnz equal to the
+    JAX host structure's); and K1, K2 and K4 at their 4M shapes against
+    their plain versions, with times, bounds and library calls (the
+    records' "north_star" entries). "[north star ...]" lines, then the
+    phase's wall beside its 240 s budget;
   * one JSON line of kernel records, the nvidia-smi name/power line, and a
     last JSON line {"ok": true, "device": {...}}.
 
@@ -173,11 +186,44 @@ JAX_RECORD_BENCH_NNZ = {("general", 256): (7621668, 20136960),
                         ("cloth", 256): (7621668, 20136960),
                         ("cloth", 1024): (122499108, 164414208),
                         ("tet", 48): (12568608, 33979392),
-                        ("tet", 64): (30010752, 41103552)}
+                        ("tet", 64): (30010752, 41103552),
+                        # the north star: counted on the JAX host structure as
+                        # bench.py counts them (9 (n + ell.mask.sum()), 4704 nb):
+                        #   JAX_PLATFORMS=cpu python -c "from precond_tpu.models import cloth;
+                        #   from precond_tpu.config import SchwarzConfig as C;
+                        #   m = cloth.make_grid(2048, 2048, z_wave=0.02, mass=0.001);
+                        #   n = m.num_verts;
+                        #   _, mask, _ = cloth.ell_structure_from_springs(n, m.springs);
+                        #   print(9 * (n + int(mask.sum())), C().num_blocks(n) * 4704)"
+                        # (the same command gives 1024's record above)
+                        ("general", 2048): (490364964, 657666240),
+                        ("cloth", 2048): (490364964, 657666240)}
 # bench.py's default config list, which the bench phase runs in order
 BENCH_SPECS = (("collide", 256), ("tet", 48), ("tet", 64), ("general", 256),
                ("general", 1024), ("cloth", 256), ("cloth", 1024))
 BENCH_REPS = 2
+# The north star (BASELINE.json:11): a 2048^2 cloth, N = 4,194,304 vertices,
+# 5 hierarchy levels of which the apply uses 4. The JAX package's capped halo
+# run there (BASELINE.md:141-158, round 5):
+#   JAX_PLATFORMS=cpu python scripts/scaling_capacity.py --grid 2048 --path halo
+# over 8 virtual CPU devices with a dense apply (41.1 GB of RSS): 8 capped
+# iterations, rel_residual 0.2318, the rhs from seed 0. The port's halo path
+# runs capped at the same count and must land within NORTH_STAR_REL of it.
+NORTH_STAR = 2048
+JAX_RECORD_NORTH_STAR_HALO = (8, 0.2318)
+NORTH_STAR_REL = 0.01
+# the capped 1-rank and 2-rank runs held to each other (the JAX script's
+# default cap), to this relative distance in rel_residual
+NORTH_STAR_CAP = 12
+NORTH_STAR_RANKS_RTOL = 1e-4
+# the bench rows the north-star phase runs, held to nnz and convergence only
+NORTH_STAR_BENCH = (("cloth", NORTH_STAR),)
+# K1's check against f64 inverses reads a seeded subset of the 139,810 blocks
+NORTH_STAR_K1_F64_BLOCKS = 4096
+# the phase's time budget (printed beside its wall)
+NORTH_STAR_BUDGET_S = 240
+# the pod solve's ranks, one per visible card
+NORTH_STAR_POD_BACKEND = "nccl"
 
 
 class SmokeFailure(RuntimeError):
@@ -1940,17 +1986,21 @@ def job_grid(group, args) -> dict:
     return out
 
 
-def _worker_module():
-    """scripts/torch_multiprocess_worker.py, whose checkpoint helpers the DCP
-    phases share with the CPU tests."""
+def _script(name: str):
+    """scripts/<name>.py as a module."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "torch_multiprocess_worker.py")
-    spec = importlib.util.spec_from_file_location("torch_multiprocess_worker", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _worker_module():
+    """scripts/torch_multiprocess_worker.py, whose checkpoint helpers the DCP
+    phases share with the CPU tests."""
+    return _script("torch_multiprocess_worker")
 
 
 def dcp_solver():
@@ -2087,12 +2137,15 @@ def run_multirank(args, tmp: str) -> dict:
     return counts
 
 
-def bench_bands(config: str, grid: int) -> tuple:
+def bench_bands(config: str, grid: int):
     """Accepted (lo, hi) Schwarz and Jacobi iterations of a bench_torch row:
     the bands this script holds each path's own run to, around the same JAX
     records. The bench tests convergence every 8 iterations, so the collide
     sheet's relative bands (its record tests every iteration) end at the next
-    multiple of 8."""
+    multiple of 8. None where the JAX package has no iteration record (the
+    north star: no JAX run converged at 2048^2)."""
+    if grid == NORTH_STAR:
+        return None
     if config == "collide":
         rec = JAX_RECORD_COLLIDE_GRID[grid][:2]
         return tuple((r * (1 - b), -(-r * (1 + b) // 8) * 8) for r, b in zip(rec, COLLIDE_BAND))
@@ -2114,7 +2167,7 @@ def bench_row_faults(row: dict) -> list:
     if not row["value"] > 0:
         faults.append(f"value {row['value']}")
     spec = (row["config"], row["grid"])
-    for key, (lo, hi) in zip(("schwarz_iters", "jacobi_iters"), bench_bands(*spec)):
+    for key, (lo, hi) in zip(("schwarz_iters", "jacobi_iters"), bench_bands(*spec) or ()):
         if not lo <= row[key] <= hi:
             faults.append(f"{key} {row[key]} outside [{lo:g}, {hi:g}]")
     want = JAX_RECORD_BENCH_NNZ.get(spec)
@@ -2123,9 +2176,9 @@ def bench_row_faults(row: dict) -> list:
     return faults
 
 
-def run_bench(specs) -> dict:
+def run_bench(specs, reps: int = BENCH_REPS) -> dict:
     """The port's bench (bench_torch.run_config) on each (config, grid), on
-    the card, with BENCH_REPS solve reps; prints each row, its launch counts
+    the card, with `reps` solve reps; prints each row, its launch counts
     and wall, and fails if any row errs or leaves the JAX records. Returns
     the launch counts by path."""
     import bench_torch
@@ -2133,7 +2186,7 @@ def run_bench(specs) -> dict:
 
     counts, faults = {}, []
     saved = os.environ.get("BENCH_SOLVE_REPS")
-    os.environ["BENCH_SOLVE_REPS"] = str(BENCH_REPS)
+    os.environ["BENCH_SOLVE_REPS"] = str(reps)
     try:
         for config, grid in specs:
             _lib.reset_launch_counts()
@@ -2888,6 +2941,308 @@ def kernel_stencil_spmv(run: dict, launches_by_path: dict, path: str, small: dic
 
 
 # ---------------------------------------------------------------------------
+# the north star: 2048^2 (BASELINE.json:11)
+# ---------------------------------------------------------------------------
+
+def north_star_halo(smi: str) -> dict:
+    """scripts/torch_scaling_capacity.py's halo path on one rank (no process
+    group) at 2048^2: prepare once, then PCG capped at the JAX record's
+    count, capped at NORTH_STAR_CAP, and to 1e-4 (each a counted run).
+    Returns the mesh and the assembled system (the pod reference reuses
+    them), the results and the launch counts."""
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.parallel.comm import Group
+
+    cap = _script("torch_scaling_capacity")
+    group = Group.single(DEVICE)
+    cfg = SchwarzConfig()
+    label = f"north star halo {NORTH_STAR}"
+    t0 = time.perf_counter()
+    mesh_c = cap.mesh_of(NORTH_STAR)
+    ell = cloth.assemble_system(mesh_c, device=DEVICE)
+    n = mesh_c.num_verts
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    log(f"[{label}] N={n} levels={cfg.num_levels(n)} applied={cfg.max_applied_levels} "
+        f"blocks={cfg.num_blocks(n)} packed={cfg.use_packed_symv(n)} (mesh and system built "
+        f"in {host_s:.1f} s); {smi}")
+    require(cfg.num_levels(n) == cfg.max_applied_levels + 1,
+            f"{label}: expected one level more than the apply uses")
+
+    counts = {}
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    prep = cap.halo_prepare(group, mesh_c, cfg, ell=ell)
+    setup_s = time.perf_counter() - t0
+    rec_it, rec_rel = JAX_RECORD_NORTH_STAR_HALO
+    capped = cap.halo_solve(group, cfg, prep, 1e-4, rec_it)
+    counts[f"{label} capped at {rec_it}"] = dict(_lib.launch_counts)
+    rel_off = abs(capped["rel_residual"] - rec_rel) / rec_rel
+    log(f"[{label}] prepare_ms={prep['prepare_ms']:.1f} (halo tables and split: "
+        f"{setup_s - prep['prepare_ms'] / 1e3:.1f} s more); capped at {rec_it}: "
+        f"iters={capped['iterations']} rel_residual={capped['rel_residual']:.6f}, JAX record "
+        f"{rec_it} / {rec_rel} (off by {100 * rel_off:.3f}%, band {100 * NORTH_STAR_REL:g}%); "
+        f"packed_apply={capped['packed_apply']} halo_mode={capped['halo_mode']}; "
+        f"launches {counts[f'{label} capped at {rec_it}']}")
+    require(capped["iterations"] == rec_it and rel_off <= NORTH_STAR_REL and capped["finite"],
+            f"{label}: the capped run leaves the JAX record")
+    require(capped["packed_apply"], f"{label}: the fine table is not packed (K2)")
+    c = counts[f"{label} capped at {rec_it}"]
+    require(c["spd_inverse96"] == 1 and c["packed_symv96"] >= 2 * (rec_it + 1),
+            f"{label}: K1 / K2 did not launch as the path needs: {c}")
+
+    _lib.reset_launch_counts()
+    capped12 = cap.halo_solve(group, cfg, prep, 1e-4, NORTH_STAR_CAP)
+    counts[f"{label} capped at {NORTH_STAR_CAP}"] = dict(_lib.launch_counts)
+    log(f"[{label}] capped at {NORTH_STAR_CAP}: iters={capped12['iterations']} "
+        f"rel_residual={capped12['rel_residual']:.8f}")
+    require(capped12["iterations"] == NORTH_STAR_CAP and capped12["finite"],
+            f"{label}: the run capped at {NORTH_STAR_CAP} did not run to its cap")
+    _lib.reset_launch_counts()
+    conv = cap.halo_solve(group, cfg, prep, 1e-4, 2000)
+    counts[f"{label} to 1e-4"] = dict(_lib.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{label}] to 1e-4: iters={conv['iterations']} rel_residual={conv['rel_residual']:.3e} "
+        f"solve_ms={conv['solve_ms']:.1f} ms_per_iter={conv['iter_ms']:.3f} "
+        f"prepare_ms={prep['prepare_ms']:.1f} peak_mem_gb={peak_gb:.2f} (held before: "
+        f"{held_gb:.2f}); launches {counts[f'{label} to 1e-4']}; {smi}")
+    require(conv["iterations"] < 2000 and conv["rel_residual"] <= 1e-4 and conv["finite"],
+            f"{label}: PCG did not converge to 1e-4")
+    check_packed_symv_table(prep["sap"].inv_fine, f"{label} fine table (row-major entry)")
+    del prep
+    return dict(mesh_c=mesh_c, ell=ell, capped=capped, capped12=capped12, conv=conv,
+                peak_gb=peak_gb, counts=counts)
+
+
+def north_star_pod(halo_run: dict, tmp: str, smi: str) -> dict:
+    """scripts/torch_pod_solve.py: in this process on one rank (no process
+    group; the reference), then as NCCL ranks, one per visible card, in child
+    processes; their iterations within HALO_BAND of the reference."""
+    import gc
+
+    import torch
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.parallel import hosts
+    from precond_tpu_torch.parallel.comm import Group
+
+    pod = _script("torch_pod_solve")
+    counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    ref = pod.pod_solve(Group.single(DEVICE), NORTH_STAR, mesh_c=halo_run["mesh_c"],
+                        ell=halo_run["ell"])
+    counts[f"north star pod {NORTH_STAR} (1 rank)"] = dict(_lib.launch_counts)
+    log(f"[north star pod {NORTH_STAR}] one rank, no process group: {json.dumps(ref)}")
+    require(ref["iterations"] < 400 and ref["rel_residual"] <= 1e-4,
+            "north star pod: the one-rank solve did not converge")
+    del halo_run["ell"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    world = torch.cuda.device_count()
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "torch_pod_solve.py")
+    t0 = time.perf_counter()
+    try:
+        logs = hosts.launch_local_ranks([sys.executable, script, "--grid", str(NORTH_STAR),
+                                         "--backend", NORTH_STAR_POD_BACKEND, "--device", DEVICE],
+                                        world, RANK_TIMEOUT, os.path.join(tmp, "pod"))
+    except RuntimeError as e:
+        raise SmokeFailure(
+            f"north star pod on {world} {NORTH_STAR_POD_BACKEND} ranks: {e}") from None
+    lines = [ln for ln in logs[0].splitlines() if ln.startswith("{")]
+    require(len(lines) == 1, "north star pod: rank 0 printed no result line")
+    out = json.loads(lines[0])
+    for r, c in enumerate(out["launches_per_rank"]):
+        counts[f"north star pod {NORTH_STAR} ({world} {NORTH_STAR_POD_BACKEND}) r{r}"] = c
+    log(f"[north star pod {NORTH_STAR}] {world} {NORTH_STAR_POD_BACKEND} rank(s), child "
+        f"processes, {time.perf_counter() - t0:.1f} s: {json.dumps(out)}; {smi}")
+    require(out["backend"] == NORTH_STAR_POD_BACKEND and out["ndev"] == world,
+            f"north star pod: expected {world} {NORTH_STAR_POD_BACKEND} ranks, got "
+            f"{out['ndev']} {out['backend']}")
+    require(abs(out["iterations"] - ref["iterations"]) <= HALO_BAND
+            and out["rel_residual"] <= 1e-4,
+            f"north star pod: {out['iterations']} iterations on {world} NCCL ranks, one rank "
+            f"{ref['iterations']} (band {HALO_BAND})")
+    require(all(c["spd_inverse96"] >= 1 and c["packed_symv96"] >= 1
+                for c in out["launches_per_rank"]),
+            "north star pod: a rank did not launch K1 and K2")
+    return dict(ref=ref, ranks=out, counts=counts)
+
+
+def north_star_two_ranks(halo_run: dict, smi: str) -> dict:
+    """scripts/torch_scaling_capacity.py's halo path capped at
+    NORTH_STAR_CAP on 2 gloo ranks sharing the card (every rank prepares
+    the whole system): each rank's iterations and residual against the
+    one-rank run, each rank's peak memory."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "torch_scaling_capacity.py")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script, "--grid", str(NORTH_STAR), "--path", "halo",
+                           "--max-iters", str(NORTH_STAR_CAP), "--world", "2", "--backend", "gloo",
+                           "--device", DEVICE, "--timeout", str(RANK_TIMEOUT)],
+                          capture_output=True, text=True, timeout=RANK_TIMEOUT + 60)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise SmokeFailure(f"north star on 2 gloo ranks exited with {proc.returncode}: "
+                           f"{(proc.stdout + proc.stderr)[-3000:]}")
+    done = sorted((json.loads(ln) for ln in proc.stdout.splitlines()
+                   if ln.startswith('{"stage": "halo_done"')), key=lambda d: d["rank"])
+    require([d["rank"] for d in done] == [0, 1], "north star 2 ranks: a rank printed no result")
+    ref = halo_run["capped12"]
+    counts = {}
+    for d in done:
+        off = abs(d["rel_residual"] - ref["rel_residual"]) / ref["rel_residual"]
+        counts[f"north star halo {NORTH_STAR} (2 gloo) r{d['rank']}"] = d["launches"]
+        log(f"[north star 2 gloo ranks] rank {d['rank']}/2: iters={d['iterations']} "
+            f"rel_residual={d['rel_residual']:.8f} (one rank {ref['rel_residual']:.8f}, off by "
+            f"{off:.2e}, tol {NORTH_STAR_RANKS_RTOL:g}) halo_mode={d['halo_mode']} "
+            f"peak_mem_gb={d['peak_gb']:.2f} rss_gb={d['rss_gb']} ms_per_iter={d['iter_ms']:.1f}; "
+            f"launches {d['launches']}")
+        require(d["iterations"] == NORTH_STAR_CAP and off <= NORTH_STAR_RANKS_RTOL and d["finite"],
+                f"north star 2 gloo ranks: rank {d['rank']} differs from the one-rank run")
+    together = sum(d["peak_gb"] for d in done)
+    log(f"[north star 2 gloo ranks] both ranks on one card: {together:.2f} GB of peaks "
+        f"together, {wall:.1f} s; {smi}")
+    return dict(ranks=done, counts=counts)
+
+
+def north_star_kernels(kernels: list, smi: str) -> None:
+    """K1, K2 and K4 at their 4M shapes (the cloth 2048 grid path's blocks,
+    comp-major table and planes), each against its plain version, with
+    kernel / plain / library times (CUDA events) and the bound; added to the
+    records under "north_star"."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.batched_inverse import invert_spd_blocks_panel
+    from precond_tpu_torch.ops.cuda.packed_symv import pack_sym96_cm
+    from precond_tpu_torch.ops.cuda.spd_inverse import spd_inverse
+    from precond_tpu_torch.ops.cuda.stencil_spmv import stencil_spmv
+    from precond_tpu_torch.ops.gridassembly import assemble_grid_hessian
+    from precond_tpu_torch.ops.gridstencil import spmv_t_plain
+
+    g, k = NORTH_STAR, NORTH_STAR.bit_length() - 1
+    path = f"north star cloth {g}"
+    cfg = SchwarzConfig()
+    mesh = cloth.make_grid(g, g, z_wave=0.02, mass=0.001, dt=1.0 / 60.0)
+    dgr, drr, offsets = cloth.assemble_system_grid(mesh, device=DEVICE)
+    h96 = assemble_grid_hessian(dgr, drr, offsets, k, cfg)
+    del dgr, drr
+    by_name = {r["name"]: r for r in kernels}
+
+    # ---- K1 on all 139,810 blocks; f64 on a seeded subset
+    bsz = h96.shape[0]
+    got = spd_inverse(h96)
+    plain = invert_spd_blocks_panel(h96)
+    max_abs = float((got - plain).abs().max())
+    per_block = float(((got - plain).abs().amax(dim=(1, 2))
+                       / plain.abs().amax(dim=(1, 2))).max())
+    del plain
+    pick = torch.as_tensor(np.sort(np.random.default_rng(11).choice(
+        bsz, NORTH_STAR_K1_F64_BLOCKS, replace=False)), device=DEVICE)
+    truth = torch.linalg.inv(h96[pick].double())
+    scale = truth.abs().amax(dim=(1, 2))
+    err64 = float(((got[pick].double() - truth).abs().amax(dim=(1, 2)) / scale).max())
+    sym = torch.equal(got, got.transpose(1, 2))
+    del truth
+    log(f"[K1 spd_inverse] {path} h96 B={bsz}: kernel vs plain max abs {max_abs:.3e}, per-block "
+        f"rel {per_block:.2e} (every block); vs f64 on {NORTH_STAR_K1_F64_BLOCKS} seeded blocks "
+        f"{err64:.2e} (tol 1e-3 per block); bitwise symmetric={sym}")
+    require(torch.isfinite(got).all().item() and sym and per_block < 1e-3 and err64 < 1e-3,
+            f"K1 disagrees on the {path} blocks")
+    ms = time_ms(lambda: spd_inverse(h96), warmup=1, iters=5)
+    plain_ms = time_ms(lambda: invert_spd_blocks_panel(h96), warmup=1, iters=2)
+    lib_ms = time_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky(h96)), warmup=1, iters=2)
+    bound = bound_ms(2 * bsz * 96 * 96 * 4, bsz * 96 ** 3)
+    log(f"[K1 spd_inverse] {path} B={bsz}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"cholesky+cholesky_inverse {lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), "
+        f"{100 * bound[0] / ms:.1f}% of the bound; {smi}")
+    by_name["spd_inverse96"]["north_star"] = dict(
+        path=path, shape=f"h96 f32[{bsz},96,96]", max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms,
+        f64_blocks=NORTH_STAR_K1_F64_BLOCKS)
+    del h96
+
+    # ---- K2 on the comp-major table of the same inverse
+    packed = pack_sym96_cm(got)
+    rec = kernel_packed_symv_cm({"inv": packed}, got, {path: 0}, path)
+    by_name["packed_symv96"]["north_star"] = dict(
+        path=path, shape=f"F f32[48,96,{packed.f.shape[2]}]", max_abs_err=rec["max_abs_err"],
+        ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+        bound_by=rec["bound_by"], library_ms=rec["library_ms"])
+    del got, packed
+
+    # ---- K4 on the planes
+    ssys = cloth.assemble_system_stencil(mesh, device=DEVICE)
+    n, nd = g * g, len(ssys.offsets)
+    args = (ssys.diag_t, ssys.dirs_t)
+    max_abs = _k4_check(*args, ssys.offsets, ssys.grid, f"{path} planes N={n} D={nd}", seed=12)
+    xt = torch.as_tensor(np.random.default_rng(13).standard_normal((3, n)).astype(np.float32),
+                         device=DEVICE)
+    y = stencil_spmv(*args, xt, ssys.offsets, ssys.grid)
+    ms = time_ms(lambda: stencil_spmv(*args, xt, ssys.offsets, ssys.grid), warmup=5, iters=50)
+    plain_ms = time_ms(lambda: spmv_t_plain(*args, xt, ssys.offsets, ssys.grid), warmup=1, iters=5)
+    bsr = stencil_bsr(ssys)
+    xv = xt.T.contiguous().reshape(-1)
+    lib_ms, lib_note, yl = None, "torch.mv(bsr)", None
+    try:
+        yl = torch.mv(bsr, xv)
+    except (RuntimeError, NotImplementedError) as e:   # the yardstick only; says why
+        lib_note = f"torch.mv(bsr): {str(e).splitlines()[0][:160]}"
+    if yl is not None:
+        err = float((yl.reshape(n, 3).T - y).abs().max())
+        require(err <= 1e-5 * float(y.abs().max()), "K4's library yardstick disagrees at 4M")
+        lib_ms = time_ms(lambda: torch.mv(bsr, xv), warmup=3, iters=20)
+    del bsr, yl
+    bound = bound_ms((9 + 9 * nd) * 4 * n + 2 * 3 * 4 * n, 2 * 9 * (nd + 1) * n)
+    log(f"[K4 stencil_spmv] {path} N={n} D={nd}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {'%.4f ms' % lib_ms if lib_ms is not None else 'none'} ({lib_note}), "
+        f"bound {bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.1f}% of the bound; {smi}")
+    by_name["stencil_spmv"]["north_star"] = dict(
+        path=path, shape=f"dirs_t f32[{nd},3,3,{n}]", max_abs_err=max_abs, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+
+
+def run_north_star(kernels: list, tmp: str, smi: str) -> dict:
+    """The [north star] phase: the 4M-vertex halo path on one rank (against
+    the JAX record, then to 1e-4), the pod solve on one rank and on NCCL
+    ranks, the capacity run on 2 gloo ranks, the cloth 2048 bench row, and
+    K1 / K2 / K4 at their 4M shapes. Returns the launch counts by path."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    halo_run = north_star_halo(smi)
+    pod = north_star_pod(halo_run, tmp, smi)
+    del halo_run["mesh_c"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = north_star_two_ranks(halo_run, smi)
+    bench_counts = run_bench(NORTH_STAR_BENCH, reps=1)
+    north_star_kernels(kernels, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    conv = halo_run["conv"]
+    log(f"[north star] {NORTH_STAR}^2: halo 1 rank {conv['iterations']} iterations to 1e-4 at "
+        f"{conv['iter_ms']:.3f} ms/iter, peak {halo_run['peak_gb']:.2f} GB; pod 1 rank "
+        f"{pod['ref']['iterations']} at {pod['ref']['iter_ms']:.3f} ms/iter, "
+        f"{pod['ranks']['ndev']} {NORTH_STAR_POD_BACKEND} {pod['ranks']['iterations']} at "
+        f"{pod['ranks']['iter_ms']:.3f}; 2 gloo ranks peaks "
+        f"{[d['peak_gb'] for d in two['ranks']]} GB; phase wall {wall:.1f} s (budget "
+        f"{NORTH_STAR_BUDGET_S} s: {'within' if wall <= NORTH_STAR_BUDGET_S else 'OVER'}); {smi}")
+    return {**halo_run["counts"], **pod["counts"], **two["counts"], **bench_counts}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3076,8 +3431,10 @@ def main(argv=None) -> int:
     t_bench = time.perf_counter()
     bench_counts = run_bench(BENCH_SPECS)
     log(f"[bench] all configs {time.perf_counter() - t_bench:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        north_counts = run_north_star(kernels, tmp, smi)
     for rec in kernels:
-        for path, c in {**rank_counts, **bench_counts}.items():
+        for path, c in {**rank_counts, **bench_counts, **north_counts}.items():
             rec["launches_by_path"][path] = c.get(rec["name"], 0)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

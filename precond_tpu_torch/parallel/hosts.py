@@ -34,14 +34,23 @@ def initialize_hosts(coordinator: Optional[str] = None,
     At one process (or none given) and no `backend` there is no process
     group: the Group is the identity on `device`. Otherwise
     ``init_process_group`` runs with ``init_method="tcp://<coordinator>"``
-    (``env://`` when no coordinator is given); naming a backend at one
-    process makes a real one-rank group, whose collectives go through it.
-    `backend` defaults to NCCL on a CUDA device and gloo on the CPU;
-    several ranks sharing one card pass "gloo" (comm.py stages its payloads
-    through host memory). `device` is the card unless the caller asks for
-    the CPU; on a card the rank binds to device index rank % device count.
+    (``env://`` when no coordinator is given, as under torchrun, whose
+    WORLD_SIZE and RANK then stand in for a missing `num_processes` and
+    `process_id`); naming a backend at one process makes a real one-rank
+    group, whose collectives go through it. `backend` defaults to NCCL on a
+    CUDA device and gloo on the CPU; several ranks sharing one card pass
+    "gloo" (comm.py stages its payloads through host memory). `device` is
+    the card unless the caller asks for the CPU; on a card the rank binds
+    to device index LOCAL_RANK when torchrun sets it, else rank % device
+    count (right only when every host runs as many ranks as it has cards,
+    numbered host by host).
     """
     dev = resolve_device(device)
+    if coordinator is None:
+        if num_processes is None:
+            num_processes = os.environ.get("WORLD_SIZE")
+        if process_id is None:
+            process_id = os.environ.get("RANK")
     num_processes = 1 if num_processes is None else int(num_processes)
     if num_processes <= 1 and backend is None:
         return Group.single(dev)
@@ -49,7 +58,9 @@ def initialize_hosts(coordinator: Optional[str] = None,
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", process_id % torch.cuda.device_count())
+        local = os.environ.get("LOCAL_RANK")
+        index = int(local) if local is not None else process_id % torch.cuda.device_count()
+        dev = torch.device("cuda", index)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     init = f"tcp://{coordinator}" if coordinator else "env://"

@@ -1,7 +1,8 @@
-"""Import hygiene: the port, chip_smoke.py and bench_torch.py never import
-JAX, the JAX package (precond_tpu_torch itself excepted) or JAX's
-dependencies that the card's machine lacks (ml_dtypes, orbax); bench_torch.py
-does not import chip_smoke.py either."""
+"""Import hygiene: the port, chip_smoke.py, bench_torch.py and the port's
+scripts (scripts/torch_*.py) never import JAX, the JAX package
+(precond_tpu_torch itself excepted) or JAX's dependencies that the card's
+machine lacks (ml_dtypes, orbax); bench_torch.py does not import
+chip_smoke.py either."""
 
 import ast
 import os
@@ -12,8 +13,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "bench_torch.py"),
-           os.path.join(ROOT, "scripts", "torch_multiprocess_worker.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "bench_torch.py")]
+    scripts = os.path.join(ROOT, "scripts")
+    out += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
+            if f.startswith("torch_") and f.endswith(".py")]
     for base, _, files in os.walk(os.path.join(ROOT, "precond_tpu_torch")):
         out += [os.path.join(base, f) for f in sorted(files) if f.endswith(".py")]
     return sorted(out)
@@ -50,6 +53,9 @@ def test_sources_found():
     assert _forbidden("chip_smoke", os.path.join(ROOT, "bench_torch.py"))
     assert not _forbidden("chip_smoke", os.path.join(ROOT, "scripts", "x.py"))
     assert os.path.join("precond_tpu_torch", "solver.py") in names
+    for script in ("torch_multiprocess_worker.py", "torch_scaling_model.py",
+                   "torch_scaling_capacity.py", "torch_pod_solve.py"):
+        assert os.path.join("scripts", script) in names, script
     for mod in ("reference_api.py", "models/collision.py", "models/hashgrid.py",
                 "ops/contact.py", "ops/stencils.py", "utils/scatter.py", "models/simulator.py",
                 "models/tetmesh.py", "ops/boxstencil.py", "utils/boxmorton.py",

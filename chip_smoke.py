@@ -77,10 +77,20 @@ what comes out against references. It prints, in order:
     collectives, peak memory, a bitwise repeat, and the rank's own fine
     table through K2 or K3 against the plain version;
   * the port's bench, bench_torch.run_config, on the seven configs of
-    bench.py's default list with 2 solve reps: one "[bench] " line per
+    bench.py's default list with 1 solve rep: one "[bench] " line per
     config with bench.py's fields, its launch counts and wall; each row held
     to the JAX records' nnz counts (equal) and iteration bands, with both
     residuals at most 1e-4;
+  * the dissection suite (scripts/torch_profile_*.py, torch_micro_bench.py,
+    torch_parse_trace.py: the twins of the JAX package's measurement
+    scripts) at the bench's sizes: the comp-major PCG iteration at cloth
+    1024 and the row-major one at 256 with one stage stubbed at a time, the
+    general apply at 1024 stage by stage, the general prepare, the grid
+    prepare and the assembly component by component, the hot primitives,
+    and a device trace of 5 comp-major iterations as a top-ops table; each
+    line with its chain's device busy share. "[dissect ...]" lines, gated
+    on finite times, bitwise repeats of the `full` iterations and K1-K4
+    launched, then the phase's wall beside its 150 s budget;
   * the north star, a 2048^2 cloth (4,194,304 vertices, 5 levels of which
     the apply uses 4), last: scripts/torch_scaling_capacity.py's halo path
     on one rank, capped at the JAX record's count (BASELINE.md's capped run:
@@ -201,7 +211,9 @@ JAX_RECORD_BENCH_NNZ = {("general", 256): (7621668, 20136960),
 # bench.py's default config list, which the bench phase runs in order
 BENCH_SPECS = (("collide", 256), ("tet", 48), ("tet", 64), ("general", 256),
                ("general", 1024), ("cloth", 256), ("cloth", 1024))
-BENCH_REPS = 2
+# one solve rep: the phase's gates are nnz and iteration counts, not times,
+# and the [dissect] phase needs the seconds (the script's limit is 1200 s)
+BENCH_REPS = 1
 # The north star (BASELINE.json:11): a 2048^2 cloth, N = 4,194,304 vertices,
 # 5 hierarchy levels of which the apply uses 4. The JAX package's capped halo
 # run there (BASELINE.md:141-158, round 5):
@@ -224,6 +236,23 @@ NORTH_STAR_K1_F64_BLOCKS = 4096
 NORTH_STAR_BUDGET_S = 240
 # the pod solve's ranks, one per visible card
 NORTH_STAR_POD_BACKEND = "nccl"
+
+
+# The [dissect] phase: the twins of the JAX package's measurement suite
+# (scripts/torch_profile_*.py, torch_micro_bench.py, torch_parse_trace.py)
+# at the bench's sizes, with each JAX script's K. Sides of the cloth per part:
+DISSECT = {"iteration_cm": 1024, "iteration": 256, "apply": 1024, "apply_fine": 1024,
+           "prepare": 1024, "prepare_grid": 1024, "assembly": 256}
+DISSECT_K = {"iteration_cm": 50, "iteration": 50, "apply": 100, "apply_fine": 50,
+             "prepare": 20, "prepare_grid": 8, "assembly": 30}
+# the device trace: `full` comp-major iterations at DISSECT["iteration_cm"],
+# and the rows of its top-ops table
+DISSECT_TRACE_ITERS = 5
+DISSECT_TRACE_TOP = 12
+# kernels the phase must launch (K3-bf16 stays with the bf16 phases)
+DISSECT_KERNELS = ("spd_inverse96", "packed_symv96", "symv96", "stencil_spmv")
+# the phase's time budget (printed beside its wall)
+DISSECT_BUDGET_S = 150
 
 
 class SmokeFailure(RuntimeError):
@@ -287,30 +316,9 @@ def same_bits(a, b) -> bool:
 
 def profile_phase(label: str, fn, reps: int, top: int = 8) -> None:
     """Device busy share and the top device activities of `reps` calls of
-    `fn`, from torch.profiler's CUDA trace, after one warm-up call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    if not dev:
-        log(f"[profile {label}] wall {wall_ms / reps:.3f} ms; device time not measured "
-            f"(the trace holds no device activity)")
-        return
-    log(f"[profile {label}] wall {wall_ms / reps:.3f} ms, device busy {busy_ms / reps:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in dev) // reps} device activities")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"[profile {label}]   {e.self_device_time_total / 1e3 / reps:9.3f} ms "
-            f"x{e.count // reps:<5d} {e.key[:90]}")
+    `fn`, from torch.profiler's CUDA trace, after one warm-up call
+    (scripts/torch_dissect_common.profile_phase)."""
+    _script("torch_dissect_common").profile_phase(label, fn, reps, top, log=log)
 
 
 def run_general(grid: int, expect_packed: bool, tol: float = 1e-4,
@@ -1987,14 +1995,14 @@ def job_grid(group, args) -> dict:
 
 
 def _script(name: str):
-    """scripts/<name>.py as a module."""
-    import importlib.util
+    """scripts/<name>.py as a module (imported once), with scripts/ on
+    sys.path, where the dissection twins import each other from."""
+    import importlib
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
 
 
 def _worker_module():
@@ -2213,6 +2221,133 @@ def run_bench(specs, reps: int = BENCH_REPS) -> dict:
             os.environ["BENCH_SOLVE_REPS"] = saved
     require(not faults, "bench: " + "; ".join(faults))
     return counts
+
+
+def dissect_faults(ms: dict, repeats: dict, launched: dict, trace_error=None) -> list:
+    """What is wrong with a [dissect] run: a line whose time is not a
+    finite positive number (ms by line), a `full` variant whose K-iteration
+    result did not repeat bit for bit (repeats by script), a kernel of
+    DISSECT_KERNELS launched no time in the phase (launched: summed counts),
+    a trace that could not be parsed."""
+    import math
+
+    faults = [f"{name}: {v} ms" for name, v in ms.items() if not (math.isfinite(v) and v > 0)]
+    faults += [f"{name}: the full variant's result does not repeat bit for bit"
+               for name, same in repeats.items() if not same]
+    faults += [f"{k} never launched" for k in DISSECT_KERNELS if launched.get(k, 0) < 1]
+    if trace_error is not None:
+        faults.append(f"trace: {trace_error}")
+    return faults
+
+
+def run_dissect(trace_dir: str, sizes: dict = DISSECT, ks: dict = DISSECT_K,
+                device: str = DEVICE, micro_sizes=None) -> tuple:
+    """The [dissect] phase: each twin of the JAX measurement suite through
+    its module functions, its lines prefixed "[dissect <script> <side>]",
+    with the launch counts set to 0 before each part and read after it; the
+    `full` variants run again and must repeat bit for bit; a device_trace of
+    DISSECT_TRACE_ITERS `full` comp-major iterations, parsed by
+    torch_parse_trace. Returns (launch counts by path, faults)."""
+    import gc
+
+    import torch
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.profiling import device_trace
+
+    dev = torch.device(device)
+    dc = _script("torch_dissect_common")
+    counts, ms, repeats = {}, {}, {}
+
+    def part(name: str, side, fn):
+        label = f"dissect {name}" + (f" {side}" if side else "")
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(lambda m: log(f"[{label}] {m}"))
+        dc.sync(dev)
+        counts[label] = dict(_lib.launch_counts)
+        for line, t in out.items():
+            ms[f"{label}: {line}"] = t["ms"]
+        log(f"[{label}] launches {counts[label]}; {time.perf_counter() - t0:.1f} s")
+
+    def iterations(name: str):
+        """A PCG-iteration twin's variants, and the bitwise repeat of `full`."""
+        mod = _script(f"torch_profile_{name}")
+        side, k = sizes[name], ks[name]
+        s = mod.setup(side, dev)
+
+        def go(say):
+            say(f"grid={s.grid} n={s.n} K={k} inv={type(s.inv).__name__}")
+            out = mod.run_variants(s, k, log=say)
+            again = mod.k_iterations(s, *mod.VARIANTS["full"], k)
+            repeats[f"{name} {side}"] = same_bits(out["full"]["out"], again)
+            say(f"full repeats bit for bit: {repeats[f'{name} {side}']}")
+            return out
+
+        part(name, side, go)
+        return mod, s
+
+    t_phase = time.perf_counter()
+    cm, s = iterations("iteration_cm")
+    trace_error = None
+    _lib.reset_launch_counts()
+    with device_trace(trace_dir):
+        cm.k_iterations(s, *cm.VARIANTS["full"], DISSECT_TRACE_ITERS)
+    counts[f"dissect trace {s.grid}"] = dict(_lib.launch_counts)
+    parse = _script("torch_parse_trace")
+    try:
+        summary = parse.summarize(parse.load(os.path.join(trace_dir, "trace.json")),
+                                  reps=DISSECT_TRACE_ITERS)
+        for line in parse.table(summary, top=DISSECT_TRACE_TOP):
+            log(f"[dissect trace {s.grid}] {line}")
+    except SystemExit as e:
+        trace_error = str(e)
+        log(f"[dissect trace {s.grid}] {trace_error}")
+    del s
+    iterations("iteration")
+
+    apply_mod = _script("torch_profile_apply")
+    sa = apply_mod.setup(sizes["apply"], dev)
+    part("apply", sizes["apply"], lambda say: apply_mod.run_components(sa, ks["apply"], log=say))
+    fine = _script("torch_profile_apply_fine")
+    sf = fine.setup(sizes["apply_fine"], dev,
+                    ell=sa.ell if sizes["apply_fine"] == sizes["apply"] else None)
+    part("apply_fine", sizes["apply_fine"],
+         lambda say: fine.run_components(sf, ks["apply_fine"], log=say))
+    del sf
+    prep = _script("torch_profile_prepare")
+    sp = prep.setup(sizes["prepare"], dev, ell=sa.ell if sizes["prepare"] == sizes["apply"] else None)
+    del sa
+    gc.collect()
+
+    def prepare_part(say):
+        firsts = prep.first_prepares(sp, log=say)
+        out = prep.run_components(prep.component_inputs(sp), ks["prepare"], log=say)
+        return {**{name: {"ms": v} for name, v in firsts.items()}, **out}
+
+    part("prepare", sizes["prepare"], prepare_part)
+    del sp
+    gc.collect()
+    for name in ("prepare_grid", "assembly"):
+        mod = _script(f"torch_profile_{name}")
+        sx = mod.setup(sizes[name], dev)
+        part(name, sizes[name], lambda say: mod.run_lines(sx, ks[name], log=say))
+        del sx
+        gc.collect()
+    micro = _script("torch_micro_bench")
+    part("micro_bench", None,
+         lambda say: micro.run(dev, micro_sizes or micro.SIZES, log=say))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launched = {}
+    for c in counts.values():
+        for k, v in c.items():
+            launched[k] = launched.get(k, 0) + v
+    faults = dissect_faults(ms, repeats, launched, trace_error)
+    wall = time.perf_counter() - t_phase
+    log(f"[dissect] {len(ms)} lines, kernels launched {launched}; phase wall {wall:.1f} s "
+        f"(budget {DISSECT_BUDGET_S} s: {'within' if wall <= DISSECT_BUDGET_S else 'OVER'}); "
+        f"{'; '.join(faults) if faults else 'every gate held'}")
+    return counts, faults
 
 
 # ---------------------------------------------------------------------------
@@ -3431,10 +3566,12 @@ def main(argv=None) -> int:
     t_bench = time.perf_counter()
     bench_counts = run_bench(BENCH_SPECS)
     log(f"[bench] all configs {time.perf_counter() - t_bench:.1f} s")
+    dissect_counts, faults = run_dissect(os.path.join(here, "build", "trace_dissect"))
+    require(not faults, "dissect: " + "; ".join(faults))
     with tempfile.TemporaryDirectory() as tmp:
         north_counts = run_north_star(kernels, tmp, smi)
     for rec in kernels:
-        for path, c in {**rank_counts, **bench_counts, **north_counts}.items():
+        for path, c in {**rank_counts, **bench_counts, **dissect_counts, **north_counts}.items():
             rec["launches_by_path"][path] = c.get(rec["name"], 0)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import resolve_device
 from ..utils.gather import INT32_MIN, take_fill
 from .assembly import CollisionTerms
 from .hierarchy import StencilPairs
@@ -148,7 +149,10 @@ def build_stencils(
     return Stencils(*[torch.cat(cols) for cols in zip(*parts)])
 
 
-def empty_stencils(device="cpu") -> Stencils:
+def empty_stencils(device=None) -> Stencils:
+    """A set of no stencils, on the card unless `device` says otherwise
+    (RuntimeError without a card, device.resolve_device)."""
+    device = resolve_device(device)
     return Stencils(
         idx=torch.zeros((0, 5), dtype=torch.int32, device=device),
         weight=torch.zeros((0, 5), dtype=torch.float32, device=device),

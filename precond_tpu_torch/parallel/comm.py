@@ -31,6 +31,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..device import resolve_device
+
 
 @dataclasses.dataclass
 class CommStats:
@@ -68,9 +70,11 @@ class Group:
         self.stats = CommStats()
 
     @classmethod
-    def single(cls, device="cpu") -> "Group":
-        """World size 1, no process group: every operation is the identity."""
-        return cls(0, 1, None, device)
+    def single(cls, device=None) -> "Group":
+        """World size 1, no process group: every operation is the identity.
+        Its tensors live on the card unless `device` says otherwise
+        (RuntimeError without a card, device.resolve_device)."""
+        return cls(0, 1, None, resolve_device(device))
 
     @classmethod
     def from_dist(cls, device) -> "Group":

@@ -10,6 +10,8 @@ from precond_tpu_torch.device import resolve_device
 from precond_tpu_torch.models import cloth, tetmesh
 from precond_tpu_torch.models.simulator import ClothSim, SoftBodySim
 from precond_tpu_torch.ops import blockcsr, gridapply, gridassembly
+from precond_tpu_torch.ops.stencils import empty_stencils
+from precond_tpu_torch.parallel.comm import Group
 from precond_tpu_torch.parallel.sharded import solve_step
 from precond_tpu_torch.solver import compute_sort_maps
 from precond_tpu_torch.utils import boxmorton, gridmorton
@@ -29,7 +31,7 @@ def _mesh():
     "assemble_system_grid", "assemble_system_stencil", "sort_index", "grid_pattern_upload",
     "analytic_hierarchy", "convert_stencil", "convert_grid_blocks", "convert_packed_cm",
     "convert_dense_cm", "cloth_sim", "soft_body_sim", "tet_assemble_system", "box_sort_index",
-    "convert_sim_state", "convert_box_stencil",
+    "convert_sim_state", "convert_box_stencil", "empty_stencils", "group_single",
 ])
 def test_entry_points_raise_without_card(no_card, entry):
     mesh = _mesh()
@@ -64,9 +66,21 @@ def test_entry_points_raise_without_card(no_card, entry):
         "convert_sim_state": lambda: convert.sim_state_from_numpy(np.zeros((4, 3)), np.zeros((4, 3))),
         "convert_box_stencil": lambda: convert.box_stencil_system_from_numpy(
             np.zeros((3, 3, 32)), np.zeros((0, 3, 3, 32)), (), (4, 4, 2)),
+        "empty_stencils": lambda: empty_stencils(),
+        "group_single": lambda: Group.single(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
+
+
+def test_empty_stencils_and_single_group_on_cpu_when_asked(no_card):
+    st = empty_stencils(device="cpu")
+    assert all(t.device.type == "cpu" and t.shape[0] == 0 for t in st)
+    assert st.idx.shape == (0, 5) and st.direction.shape == (0, 3)
+    g = Group.single("cpu")
+    assert g.device.type == "cpu" and (g.rank, g.world, g.distributed) == (0, 1, False)
+    x = torch.arange(6.0).reshape(2, 3)
+    assert torch.equal(g.all_reduce_sum(x), x)
 
 
 def test_entry_points_run_on_cpu_when_asked(no_card):

@@ -205,12 +205,13 @@ def test_stencils_without_o2s_refused(g=32):
 
     _, (tdg, tdr, off) = _grid_blocks(g)
     with pytest.raises(ValueError, match="o2s"):
-        prepare_grid(tdg, tdr, off, 5, SchwarzConfig(), stencils=empty_stencils())
+        prepare_grid(tdg, tdr, off, 5, SchwarzConfig(), stencils=empty_stencils(device="cpu"))
     dims = (4, 4, 2)
     ell = tetmesh.assemble_system(tetmesh.make_box(*dims), device="cpu")
     dg, dr = boxstencil.planes_from_ell(ell, dims)
     with pytest.raises(ValueError, match="o2s"):
-        prepare_box(dg, dr, boxstencil.BOX_OFFSETS, dims, SchwarzConfig(), empty_stencils())
+        prepare_box(dg, dr, boxstencil.BOX_OFFSETS, dims, SchwarzConfig(),
+                    empty_stencils(device="cpu"))
 
 
 # ---- apply -----------------------------------------------------------------------

@@ -91,6 +91,18 @@ what comes out against references. It prints, in order:
     line with its chain's device busy share. "[dissect ...]" lines, gated
     on finite times, bitwise repeats of the `full` iterations and K1-K4
     launched, then the phase's wall beside its 150 s budget;
+  * the contact-regime probes (scripts/torch_probe_*.py: the twins of the
+    JAX package's probe scripts) on the folded sheet: the stiffness,
+    coarse-damping and Morton-sort scans at 128 with stiffness 1e3 and 1e4
+    (iterations of the static grid M, the general M, each damping theta,
+    both sorts and block-Jacobi, each held to the JAX record's band), the
+    collide 256 split (prepare with and without the stencils, the contact
+    terms alone, the composed loop per contact SpMV form, the static and
+    general solves against their records, the three SpMV forms against
+    each other), the streaming and patch crossings in the cloth 1024 loop
+    (bit for bit) and the placement primitives' prices. "[probe ...]"
+    lines, gated on the bands, bitwise repeats and K1-K4 launched, then
+    the phase's wall beside its 120 s budget;
   * the north star, a 2048^2 cloth (4,194,304 vertices, 5 levels of which
     the apply uses 4), last: scripts/torch_scaling_capacity.py's halo path
     on one rank, capped at the JAX record's count (BASELINE.md's capped run:
@@ -253,6 +265,42 @@ DISSECT_TRACE_TOP = 12
 DISSECT_KERNELS = ("spd_inverse96", "packed_symv96", "symv96", "stencil_spmv")
 # the phase's time budget (printed beside its wall)
 DISSECT_BUDGET_S = 150
+
+# The [contact probes] phase: the twins of the JAX package's contact-regime
+# probes (scripts/torch_probe_*.py) on the folded sheet. Sides per part:
+PROBES = {"scans": 128, "contact": 256, "crossing_fix": 1024}
+# the scans' stiffnesses here: the regimes the collide defaults rest on (1e5
+# and 1e6 run by hand through the scripts)
+PROBE_STIFFS = (1e3, 1e4)
+# K of the composed loops (the JAX scripts' own)
+PROBE_K = {"contact": 50, "crossing_fix": 50}
+# The JAX package's iteration counts (PCG to 1e-4, check_every 8) per side
+# and stiffness, from the JAX scripts' functions on the CPU, op by op:
+#   JAX_PLATFORMS=cpu python3 scripts/jax_probe_record.py --scans 128 --stiff 1e3 1e4
+# static / general / jacobi: probe_stiff.py; damped (theta 1, 0.5, 0.25,
+# 0.125): probe_damping.py; per_axis / iso: probe_isosort.py with the per-axis
+# sort its line 85 meant (its jacobi is probe_stiff's).
+JAX_RECORD_PROBE_SCANS = {
+    128: {1e3: dict(static=384, general=328, jacobi=664, damped=(384, 336, 320, 320),
+                    per_axis=384, iso=328),
+          1e4: dict(static=1136, general=504, jacobi=960, damped=(1136, 1016, 944, 936),
+                    per_axis=1160, iso=504)}}
+# probe_contact.py's section 3 at stiffness 1e3 (static grid M, general M on
+# the tile maps, row-major, max_iters 2000):
+#   JAX_PLATFORMS=cpu python3 scripts/jax_probe_record.py --contact 256
+JAX_RECORD_PROBE_CONTACT = {256: dict(static=464, general=472)}
+# accepted band around a record, by stiffness: +-max(rel * count, abs). At
+# 1e3 the counts are robust to rounding (the port equals JAX at 16^2 in every
+# solver); from 1e4 up any change of summation order moves them by one to
+# four convergence tests (8-32 iterations: at 16^2 and 1e4 block-Jacobi takes
+# 632 in JAX compiled, 640 in JAX op by op, 608 in the port, 632 in the port
+# with the scatter contact SpMV), so those regimes get the wider band.
+PROBE_BANDS = {1e3: (0.03, 16), 1e4: (0.12, 16), 1e5: (0.12, 16), 1e6: (0.12, 16)}
+# the three contact SpMV forms against each other (the JAX contact tests'
+# tolerance, relative to max|y|)
+PROBE_SPMV_RTOL = 5e-6
+# the phase's time budget (printed beside its wall)
+PROBE_BUDGET_S = 120
 
 
 class SmokeFailure(RuntimeError):
@@ -608,17 +656,9 @@ def run_grid_solve_step(grid: int, tol: float = 1e-4) -> dict:
 def folded_sheet(grid: int):
     """The JAX bench's `collide` sheet (bench.py:220-227): a grid x grid cloth,
     z_wave 0, mass 1e-3, dt 1/60, the right half folded onto the left at a
-    gap of 0.5 h. Returns (mesh, positions f32[N,3], h)."""
-    import numpy as np
-    from precond_tpu_torch.models import cloth
-
-    mesh = cloth.make_grid(grid, grid, z_wave=0.0, mass=0.001, dt=1.0 / 60.0)
-    h = 1.0 / max(grid - 1, 1)
-    p = np.asarray(mesh.positions).copy()
-    fold = p[:, 0] > 0.5
-    p[:, 2] = np.where(fold, 0.5 * h, 0.0)
-    p[:, 0] = np.where(fold, 1.0 - p[:, 0], p[:, 0])
-    return mesh, p.astype(np.float32), h
+    gap of 0.5 h. Returns (mesh, positions f32[N,3], h)
+    (scripts/torch_probe_common.folded_sheet)."""
+    return _script("torch_probe_common").folded_sheet(grid)
 
 
 def detect_collide(pos, faces, edges, h: float):
@@ -626,23 +666,8 @@ def detect_collide(pos, faces, edges, h: float):
     VF/EE/EF at threshold 0.75 h, stiffness 1e3, a budget of n // 4 per set
     and a cap of 2, then build_stencils with the valid stencils kept (one
     host read) and padded to a multiple of 8. Returns (sets, infos, stencils,
-    live count)."""
-    import torch
-    from precond_tpu_torch.models import collision as coll
-    from precond_tpu_torch.ops.stencils import build_stencils
-
-    n = pos.shape[0]
-    kw = dict(threshold=0.75 * h, stiffness=1e3, max_pairs=n // 4)
-    vf, i1 = coll.detect_vf_grid(pos, faces, per_vertex_cap=2, **kw)
-    ee, i2 = coll.detect_ee_grid(pos, edges, per_edge_cap=2, **kw)
-    ef, i3 = coll.detect_ef_grid(pos, edges, faces, per_edge_cap=2, **kw)
-    st = build_stencils(edges, faces, ef=ef, ee=ee, vf=vf)
-    keep = torch.nonzero(st.valid).reshape(-1)
-    live = keep.numel()
-    keep = torch.cat([keep, keep.new_zeros((-live) % 8)])
-    st = type(st)(*(f[keep] for f in st))
-    st.valid[live:] = False
-    return (vf, ee, ef), (i1, i2, i3), st, live
+    live count) (scripts/torch_probe_common.detect)."""
+    return _script("torch_probe_common").detect(pos, faces, edges, h, 1e3)
 
 
 def collide_system(pre, ell, st):
@@ -2350,6 +2375,181 @@ def run_dissect(trace_dir: str, sizes: dict = DISSECT, ks: dict = DISSECT_K,
     return counts, faults
 
 
+def probe_band(rec: int, stiff: float) -> tuple:
+    """The accepted (lo, hi) iterations around a record at a stiffness."""
+    rel, floor = PROBE_BANDS[stiff]
+    half = max(rel * rec, floor)
+    return rec - half, rec + half
+
+
+def scan_records(rec: dict) -> dict:
+    """One stiffness's record as {(script, column): iterations}, in the
+    twins' column names."""
+    out = {("stiff", k): rec[k] for k in ("static", "general", "jacobi")}
+    out.update({("damping", th): v for th, v in zip((1.0, 0.5, 0.25, 0.125), rec["damped"])})
+    out[("damping", "jacobi")] = rec["jacobi"]
+    out.update({("isosort", "axis"): rec["per_axis"], ("isosort", "iso"): rec["iso"],
+                ("isosort", "jacobi"): rec["jacobi"]})
+    return out
+
+
+def probe_faults(iters: list, same: dict, launched: dict, ms: dict) -> list:
+    """What is wrong with a [contact probes] run: an iteration count outside
+    its band (iters: (label, got, record, stiffness)), a check that did not
+    hold (same: label -> bool: bitwise repeats and variants, the contact
+    SpMV forms' agreement), a kernel of DISSECT_KERNELS launched no time
+    (launched: summed counts), a time that is not a finite positive number."""
+    import math
+
+    faults = []
+    for label, got, rec, stiff in iters:
+        lo, hi = probe_band(rec, stiff)
+        if not lo <= got <= hi:
+            faults.append(f"{label}: {got} iterations outside [{lo:g}, {hi:g}] (JAX {rec})")
+    faults += [f"{label} does not hold" for label, ok in same.items() if not ok]
+    faults += [f"{k} never launched" for k in DISSECT_KERNELS if launched.get(k, 0) < 1]
+    faults += [f"{name}: {v} ms" for name, v in ms.items() if not (math.isfinite(v) and v > 0)]
+    return faults
+
+
+def run_contact_probes(sizes: dict = PROBES, stiffs=PROBE_STIFFS, ks: dict = PROBE_K,
+                       scan_records_by_side: dict = JAX_RECORD_PROBE_SCANS,
+                       contact_records: dict = JAX_RECORD_PROBE_CONTACT,
+                       device: str = DEVICE, scatter_sizes=None) -> tuple:
+    """The [contact probes] phase: the twins of the JAX contact-regime probes
+    through their module functions, each part's lines prefixed "[probe
+    <script> <side>]", with the launch counts set to 0 before each part and
+    read after it: the three scans (stiffness, damping, Morton sort) at
+    sizes["scans"], held to the JAX records' bands; probe_contact at
+    sizes["contact"] (the prepare split, the composed loop per contact SpMV
+    form, the static and general solves against their records, the three
+    SpMV forms against each other, the slots loop repeated bit for bit);
+    probe_crossing_fix at sizes["crossing_fix"] (the crossing variants bit
+    for bit, the stream loop repeated); probe_scatter_cost's primitives.
+    Returns (launch counts by path, faults)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from precond_tpu_torch.ops.cuda import _lib
+
+    dev = torch.device(device)
+    dc = _script("torch_dissect_common")
+    pc = _script("torch_probe_common")
+    counts, iters, same, ms = {}, [], {}, {}
+
+    def part(name: str, side, fn):
+        label = f"probe {name}" + (f" {side}" if side else "")
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        fn(lambda m: log(f"[{label}] {m}"))
+        dc.sync(dev)
+        counts[label] = dict(_lib.launch_counts)
+        log(f"[{label}] launches {counts[label]}; {time.perf_counter() - t0:.1f} s")
+
+    t_phase = time.perf_counter()
+    side = sizes["scans"]
+    sheet = pc.setup(side, dev)
+    recs = {st: scan_records(scan_records_by_side[side][st]) for st in stiffs}
+    for name in ("stiff", "damping", "isosort"):
+        mod = _script(f"torch_probe_{name}")
+
+        def scan(say, mod=mod, name=name):
+            say(f"n={sheet.n} stencils={sheet.live}")
+            for stiff, row in mod.run(sheet, stiffs, log=say).items():
+                for col, r in row.items():
+                    iters.append((f"{name} {side} stiff {stiff:g} {col}", r["iters"],
+                                  recs[stiff][(name, col)], stiff))
+                    ms[f"{name} {side} stiff {stiff:g} {col}"] = r["ms_per_iter"]
+
+        part(name, side, scan)
+    del sheet
+    gc.collect()
+
+    contact = _script("torch_probe_contact")
+    side, k = sizes["contact"], ks["contact"]
+    s = contact.setup(side, dev)
+
+    def contact_part(say):
+        say(f"n={s.n} stencils={s.live} (slots={s.st.idx.numel()})")
+        for name, t in contact.prepare_walls(s, log=say).items():
+            ms[f"contact {side} {name}"] = t["best_s"] * 1e3
+        forms = contact.run_forms(s, k, log=say)
+        ms.update({f"contact {side} iter[{f}]": t["ms"] for f, t in forms.items()})
+        same[f"contact {side}: the slots loop repeats bit for bit"] = same_bits(
+            forms["slots"]["out"], contact.k_iterations(s, "slots", k))
+        x = torch.as_tensor(np.random.default_rng(7).standard_normal((s.n, 3)).astype(np.float32),
+                            device=dev)
+        ys = contact.spmv_forms(s, x)
+        scale = float(ys["slots"].abs().max())
+        dropped = int(s.ce.dropped)
+        for f in ("scatter", "ell"):
+            err = float((ys[f] - ys["slots"]).abs().max())
+            say(f"contact SpMV {f} against slots: max abs {err:.3e} (tol {PROBE_SPMV_RTOL:g} x "
+                f"max|y| {scale:.3e}; contact ELL dropped {dropped})")
+            if f == "scatter" or dropped == 0:
+                same[f"contact {side}: the {f} contact SpMV against slots"] = \
+                    err <= PROBE_SPMV_RTOL * scale
+        out = contact.solves(s, log=say)
+        ms[f"contact {side} prepare general"] = out["prepare general"]["best_s"] * 1e3
+        for name in ("static", "general"):
+            iters.append((f"contact {side} {name} M", out[name]["iters"],
+                          contact_records[side][name], contact.STIFFNESS))
+
+    part("contact", side, contact_part)
+    del s
+    gc.collect()
+
+    cross = _script("torch_probe_crossing_fix")
+    side, k = sizes["crossing_fix"], ks["crossing_fix"]
+    sx = cross.setup(side, dev)
+
+    def cross_part(say):
+        say(f"grid={sx.grid} n={sx.n} K={k} inv={type(sx.inv).__name__} "
+            f"inv_cm={type(sx.inv_cm).__name__}")
+        out = cross.run(sx, k, log=say)
+        for name, t in out.items():
+            ms[f"crossing_fix {side} {name}"] = t["ms"]
+            if name != "comp-major":
+                same[f"crossing_fix {side}: {name} bit for bit as stream"] = t["same"]
+        same[f"crossing_fix {side}: the stream loop repeats bit for bit"] = same_bits(
+            out["stream"]["out"], cross.k_iterations(sx, cross._variants()["stream"], k))
+        ref, cm = out["stream"]["out"], out["comp-major"]["out"]
+        rel = float((cm.T - ref).abs().max() / ref.abs().max())
+        say(f"comp-major x against stream: max abs {rel:.3e} of max|x|; first entry within "
+            f"{cross.CM_RTOL:g} relative: {out['comp-major']['same']}")
+
+    part("crossing_fix", side, cross_part)
+    del sx
+    gc.collect()
+
+    scat = _script("torch_probe_scatter_cost")
+    p, m = scatter_sizes or (scat.P, scat.M)
+    sc = scat.setup(p, m, dev)
+
+    def scatter_part(say):
+        for name, t in scat.run(sc, log=say).items():
+            if not isinstance(t, str):
+                ms[f"scatter_cost {name}"] = t["ms"]
+
+    part("scatter_cost", None, scatter_part)
+    del sc
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launched = {}
+    for c in counts.values():
+        for kname, v in c.items():
+            launched[kname] = launched.get(kname, 0) + v
+    faults = probe_faults(iters, same, launched, ms)
+    wall = time.perf_counter() - t_phase
+    log(f"[contact probes] {len(iters)} iteration counts in their bands: "
+        f"{sum(1 for lb, g, r, st in iters if probe_band(r, st)[0] <= g <= probe_band(r, st)[1])}; "
+        f"{len(same)} checks; kernels launched {launched}; phase wall {wall:.1f} s (budget "
+        f"{PROBE_BUDGET_S} s: {'within' if wall <= PROBE_BUDGET_S else 'OVER'}); "
+        f"{'; '.join(faults) if faults else 'every gate held'}")
+    return counts, faults
+
+
 # ---------------------------------------------------------------------------
 # small-input references
 # ---------------------------------------------------------------------------
@@ -3568,10 +3768,13 @@ def main(argv=None) -> int:
     log(f"[bench] all configs {time.perf_counter() - t_bench:.1f} s")
     dissect_counts, faults = run_dissect(os.path.join(here, "build", "trace_dissect"))
     require(not faults, "dissect: " + "; ".join(faults))
+    probe_counts, faults = run_contact_probes()
+    require(not faults, "contact probes: " + "; ".join(faults))
     with tempfile.TemporaryDirectory() as tmp:
         north_counts = run_north_star(kernels, tmp, smi)
     for rec in kernels:
-        for path, c in {**rank_counts, **bench_counts, **dissect_counts, **north_counts}.items():
+        for path, c in {**rank_counts, **bench_counts, **dissect_counts, **probe_counts,
+                        **north_counts}.items():
             rec["launches_by_path"][path] = c.get(rec["name"], 0)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -45,14 +45,24 @@ def env_int(name: str, default: int) -> int:
     return int(os.environ.get(name, str(default)))
 
 
-def parse_device(description: str, argv=None) -> torch.device:
-    """--device from the command line: the card unless --device cpu."""
+def parse_args(description: str, argv=None,
+               add: Optional[Callable[[argparse.ArgumentParser], None]] = None) -> tuple:
+    """(device, namespace): --device from the command line (the card unless
+    --device cpu), and the arguments that `add(parser)` declares."""
     from precond_tpu_torch.device import resolve_device
 
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a card) or cpu")
-    return resolve_device(ap.parse_args(argv).device)
+    if add is not None:
+        add(ap)
+    ns = ap.parse_args(argv)
+    return resolve_device(ns.device), ns
+
+
+def parse_device(description: str, argv=None) -> torch.device:
+    """--device from the command line: the card unless --device cpu."""
+    return parse_args(description, argv)[0]
 
 
 def card_line(dev: torch.device) -> str:

@@ -1,6 +1,8 @@
-"""Shared by the dissection tests (tests/test_torch_dissect*.py): run one of
-the JAX package's measurement scripts (scripts/profile_*.py, ...) on the
-CPU and reach what it defined, and run a torch twin's main.
+"""Shared by the dissection and probe tests (tests/test_torch_dissect*.py,
+tests/test_torch_probes_*.py): run one of the JAX package's measurement or
+probe scripts (scripts/profile_*.py, scripts/probe_*.py, ...) on the CPU
+and reach what it defined, call a JAX script's main, parse a probe scan's
+lines, and run a torch twin's main.
 
 A JAX script runs as `runpy.run_path` would run it, but into a namespace
 the test keeps, so one that raises part-way (a stale call in the JAX
@@ -13,6 +15,7 @@ are reached through those functions' closures.
 import contextlib
 import io
 import os
+import re
 import sys
 from types import SimpleNamespace
 
@@ -21,8 +24,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(ROOT, "scripts")
-if SCRIPTS not in sys.path:
-    sys.path.insert(0, SCRIPTS)
+for _p in (SCRIPTS, ROOT):
+    if _p not in sys.path:
+        sys.path.insert(0, _p)
 
 
 def jax_script(name: str, monkeypatch, env: dict, raises=()) -> SimpleNamespace:
@@ -85,3 +89,62 @@ def close(got, want, rtol=1e-5, atol_rel=1e-6):
 
 def np_(a):
     return np.array(a)
+
+
+def run_main(run: SimpleNamespace, argv, raises=()) -> SimpleNamespace:
+    """Call a JAX script's main() (one that runs only under __main__) with
+    sys.argv = [its path] + argv; its printed output is added to run.out,
+    the exception of a type in `raises` that stopped it goes to run.error."""
+    saved = sys.argv
+    sys.argv = [run.g["__file__"]] + [str(a) for a in argv]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            run.g["main"]()
+    except raises as e:
+        run.error = e
+    finally:
+        sys.argv = saved
+    run.out += buf.getvalue()
+    return run
+
+
+def fault_line(error: BaseException, path: str) -> int:
+    """The line of `path` at which `error` was raised (the innermost frame
+    of that file in its traceback)."""
+    tb, line = error.__traceback__, None
+    while tb is not None:
+        if tb.tb_frame.f_code.co_filename == path:
+            line = tb.tb_lineno
+        tb = tb.tb_next
+    return line
+
+
+_PAIR = re.compile(r"(?<![\w/])([A-Za-z][\w.]*)=\s*(\S+)")
+
+
+def parse_scan(text: str) -> dict:
+    """A probe scan's lines ("stiff=   1e+03  static=   224  ...") as
+    {stiffness: {column: iterations}}; the column of a damping theta is
+    the float theta ("th0.5=..." -> 0.5). Ratios (j/static=...) are left out."""
+    out = {}
+    for line in text.splitlines():
+        pairs = dict(_PAIR.findall(line))
+        if "stiff" not in pairs or not line.startswith("stiff="):
+            continue
+        stiff = float(pairs.pop("stiff"))
+        out[stiff] = {(float(k[2:]) if k.startswith("th") else k): int(v) for k, v in pairs.items()}
+    return out
+
+
+def assert_probe_count(got: int, want: int, stiff: float) -> None:
+    """A twin's iteration count against the JAX script's: equal at 1e3, in
+    chip_smoke.py's [contact probes] band above (chip_smoke.PROBE_BANDS:
+    from 1e4 up the counts move with the summation order)."""
+    import chip_smoke
+
+    if stiff == 1e3:
+        assert got == want, (got, want)
+        return
+    lo, hi = chip_smoke.probe_band(want, stiff)
+    assert lo <= got <= hi, (got, want, lo, hi)

@@ -54,7 +54,10 @@ def test_sources_found():
     assert not _forbidden("chip_smoke", os.path.join(ROOT, "scripts", "x.py"))
     assert os.path.join("precond_tpu_torch", "solver.py") in names
     for script in ("torch_multiprocess_worker.py", "torch_scaling_model.py",
-                   "torch_scaling_capacity.py", "torch_pod_solve.py"):
+                   "torch_scaling_capacity.py", "torch_pod_solve.py", "torch_probe_common.py",
+                   "torch_probe_stiff.py", "torch_probe_isosort.py", "torch_probe_damping.py",
+                   "torch_probe_contact.py", "torch_probe_scatter_cost.py",
+                   "torch_probe_crossing_fix.py"):
         assert os.path.join("scripts", script) in names, script
     for mod in ("reference_api.py", "models/collision.py", "models/hashgrid.py",
                 "ops/contact.py", "ops/stencils.py", "utils/scatter.py", "models/simulator.py",

@@ -46,6 +46,23 @@ what comes out against references. It prints, in order:
     a 64x64 fold for the collide path, the analytic-hierarchy prepare
     against prepare_grid, and on a 64x64 fold the grid prepare with
     stencils against the general prepare on the tile maps;
+  * irregular Delaunay cloth (scripts/torch_irregular_mesh.py, the general
+    path on an unstructured mesh): irregular 1024 (1,048,576 vertices,
+    packed: K1 and K2) and irregular 256 hub (64,405 vertices around a
+    centre vertex with ~125 mesh neighbours, dense: K1 and K3), each
+    allocate -> prepare -> PCG against block-Jacobi and the JAX record of
+    scripts/jax_irregular_record.py (the mesh's digest, width, nnz, levels
+    and capacities equal; iterations in a band), bitwise repeats, the
+    card's sort maps against the CPU's, K1 on the mesh's blocks (the hub's
+    block by itself) and K2 or K3 on its table; on the hub mesh a prepare at
+    level_headroom 0.3 whose overflow retries land on the record's headroom
+    with going_next equal to a CPU prepare's. "[irregular ...]" lines, then
+    the phase's wall beside its 90 s budget;
+  * the graft entry points (graft_entry_torch.py, the twin of
+    __graft_entry__.py): entry() on the card and dryrun_multichip(2) on two
+    gloo ranks sharing cuda:0, each step within one iteration of the JAX
+    record, K1 and K3 (and K4 on the grid step) launched. "[graft entry]"
+    lines, then the phase's wall beside its 45 s budget;
   * per kernel: error against its plain version with the tolerance on
     every path's blocks and tables, and kernel / plain / library times
     (CUDA events) beside the bound;
@@ -301,6 +318,45 @@ PROBE_BANDS = {1e3: (0.03, 16), 1e4: (0.12, 16), 1e5: (0.12, 16), 1e6: (0.12, 16
 PROBE_SPMV_RTOL = 5e-6
 # the phase's time budget (printed beside its wall)
 PROBE_BUDGET_S = 120
+# The general path on irregular Delaunay cloth (scripts/torch_irregular_mesh.py):
+# (name, lattice side, hub radius in spacings).
+IRREGULAR = (("1024", 1024, 0.0), ("256 hub", 256, 19.0))
+# The JAX package's record on those meshes, from scripts/jax_irregular_record.py
+# on the CPU (2026-10-17; jax 0.9.0, numpy 2.0.2, scipy 1.17.0): N, ELL width,
+# nnz (9 (N + stored off-diagonal blocks)), the digests of the topology
+# (springs and stiffness: the card's machine must rebuild it bit for bit) and
+# of the positions, levels, capacities, packed storage, (Schwarz, Jacobi)
+# iterations to 1e-4 tested every iteration with the rhs from seed 0,
+# Schwarz's residual recomputed as ||b - H x|| / ||b||, and for
+# the hub the headroom, capacities and Schwarz iterations of a prepare asked
+# for at level_headroom 0.3 after its overflow retries.
+JAX_RECORD_IRREGULAR = {
+    "1024": dict(n=1048576, width=41, nnz=121487076, springs_digest="73868a37cf73187b",
+                 digest="eb499563b6d82ca0", levels=4, capacities=(1048576, 65536, 4096, 256),
+                 packed=True, iters=(112, 477), true_rel=2.145e-4),
+    "256 hub": dict(n=64405, width=215, nnz=7450605, springs_digest="fc1030f732c88f0f",
+                    digest="5d874924836504b0", levels=4, capacities=(64416, 4032, 256, 32),
+                    packed=False, iters=(107, 498), true_rel=2.118e-4, retry_headroom=2.4,
+                    retry_capacities=(64416, 4832, 384, 32), retry_iters=107),
+}
+# accepted relative bands (Schwarz, Jacobi) around that record. Both sides test
+# every iteration, so only rounding separates them: the card's K1 and its
+# reductions against XLA's ops on the CPU. On the CPU the two packages land one
+# iteration apart on the 977-vertex hub mesh (tests/test_torch_irregular.py);
+# 5% leaves ~5 iterations of Schwarz's ~110 and ~25 of Jacobi's ~490.
+IRREGULAR_BAND = (0.05, 0.05)
+IRREGULAR_RETRY_FROM = 0.3
+# The card's Morton sort maps against the CPU's: the normalization is
+# correctly rounded on both, so they should agree; a flipped tie moves one
+# vertex and shifts the entries between its two ranks. Allowed: 0.1% of N.
+IRREGULAR_SORT_DIFF = 1e-3
+IRREGULAR_BUDGET_S = 90
+# The JAX package's __graft_entry__.py, from the same record: entry()'s
+# iterations (rel 6.01e-5) and the dryrun's (halo, grid) step iterations on 2
+# virtual devices (rel 4.68e-5, 9.43e-5; the same on 4). The twin must land
+# within one convergence test (one iteration: both test every iteration).
+JAX_RECORD_GRAFT = {"entry": 14, "dryrun_2": {"halo": 13, "grid": 69}}
+GRAFT_BUDGET_S = 45
 
 
 class SmokeFailure(RuntimeError):
@@ -1021,6 +1077,243 @@ def check_collide_grid_reference(grid: int = 64) -> None:
         f"maps arithmetic={same_hier}; prepare_grid(st, o2s) vs prepare_with_system(st) max abs err "
         f"{err:.2e} (rtol 2e-4, atol 1e-5) ok={ok}")
     require(same_hier and ok, f"collide {grid}: the grid prepare with stencils disagrees with the general one")
+
+
+def _prepare_counting_retries(pre, ell) -> int:
+    """pre.prepare(ell); returns how many overflow retries it warned of."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pre.prepare(ell)
+    return sum("overflow" in str(w.message) for w in caught)
+
+
+def run_irregular(name: str, side: int, radius: float, tol: float = 1e-4) -> dict:
+    """The general path on irregular Delaunay cloth: scripts/torch_irregular_mesh.py's
+    mesh as ClothMesh(..., grid=None), allocate -> prepare -> PCG on the card
+    (rhs from seed 0, every iteration tested) against block-Jacobi on the
+    same SpMV and the JAX record; bitwise repeats, the card's sort maps
+    against the CPU's, K1 on the mesh's blocks (the hub's block by itself)
+    and K2 or K3 on its table. A mesh whose record holds a retry also
+    prepares at level_headroom 0.3: the overflow retries on the card land on
+    the record's headroom with going_next equal to a CPU prepare's."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch import SchwarzConfig, SchwarzPreconditioner
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.blockcsr import spmv
+    from precond_tpu_torch.ops.cuda import _lib
+    from precond_tpu_torch.ops.cuda.packed_symv import PackedInverse
+    from precond_tpu_torch.ops.cuda.spd_inverse import spd_inverse
+    from precond_tpu_torch.parallel.pcg import jacobi_preconditioner, pcg
+    from precond_tpu_torch.solver import compute_sort_maps
+
+    label = f"irregular {name}"
+    rec = JAX_RECORD_IRREGULAR[name]
+    tim = _script("torch_irregular_mesh")
+    t0 = time.perf_counter()
+    arrays = tim.irregular_cloth(side, radius)
+    mesh_s = time.perf_counter() - t0
+    mesh = cloth.ClothMesh(**arrays)
+    ell = cloth.assemble_system(mesh, device=DEVICE)
+    n = mesh.num_verts
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32),
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    cfg = SchwarzConfig()
+    topo = tim.digest(dict(arrays, positions=np.zeros(0, np.float32)))
+    nnz = 9 * (n + int(ell.mask.sum()))
+    hub = tim.hub_vertex(arrays)
+    log(f"[{label}] N={n} ELL width={ell.max_degree} nnz={nnz} (record {rec['width']}, "
+        f"{rec['nnz']}); vertex {hub} meets {int(tim.mesh_degrees(arrays)[hub])} mesh "
+        f"neighbours; levels={cfg.num_levels(n)} caps={cfg.level_capacities(n)} "
+        f"packed={cfg.use_packed_symv(n)}; host build {host_s:.2f} s (points, Delaunay and "
+        f"springs {mesh_s:.2f} s); topology digest {topo} (record {rec['springs_digest']}), "
+        f"positions digest {tim.digest(arrays)} (record {rec['digest']})")
+    require(topo == rec["springs_digest"] and n == rec["n"] and ell.max_degree == rec["width"]
+            and nnz == rec["nnz"], f"{label}: the mesh is not the JAX record's")
+    require(cfg.num_levels(n) == rec["levels"]
+            and tuple(cfg.level_capacities(n)) == tuple(rec["capacities"]),
+            f"{label}: levels or capacities differ from the JAX record's")
+
+    # ---- the counted run: allocate -> prepare -> PCG through the entry points
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    pre = SchwarzPreconditioner(cfg, device=DEVICE)
+    pre.allocate(mesh.positions)
+    retries = _prepare_counting_retries(pre, ell)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = pcg(lambda x: spmv(ell, x), pre.apply, b, tol=tol, max_iters=2000)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = dict(_lib.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    true_rel = float(torch.linalg.norm(b - spmv(ell, res.x)) / torch.linalg.norm(b))
+    ms_per_iter = 1e3 * (t2 - t1) / max(res.iterations, 1)
+    log(f"[{label}] launches in the counted run: {counts}")
+    log(f"[{label}] schwarz: iters={res.iterations} rel_residual={float(res.rel_residual):.3e} "
+        f"true_rel_residual={true_rel:.3e} allocate+prepare_ms(first)={1e3 * (t1 - t0):.1f} "
+        f"solve_ms={1e3 * (t2 - t1):.1f} ms_per_iter={ms_per_iter:.3f} peak_mem_gb={peak_gb:.2f} "
+        f"retries={retries} level_headroom={pre.cfg_effective.level_headroom}")
+    # The recomputed residual: in f32 the recursive one drifts from it on these
+    # stiff meshes, in the JAX package alike (its own recomputed residual is in
+    # the record), so it is held to run_general's 10 * tol.
+    log(f"[{label}] true residual {true_rel:.3e}, JAX record's {rec['true_rel']:.3e} "
+        f"(limit {10 * tol:.0e})")
+    require(res.iterations < 2000 and float(res.rel_residual) <= tol
+            and torch.isfinite(res.x).all().item() and true_rel <= 10 * tol,
+            f"{label}: Schwarz PCG did not reach {tol} (true residual {true_rel:.3e})")
+    require(retries == 0 and isinstance(pre.state.inv96, PackedInverse) == rec["packed"],
+            f"{label}: retried {retries} times or the storage is not the record's")
+    symv_name = "packed_symv96" if rec["packed"] else "symv96"
+    require(counts["spd_inverse96"] == 1 and counts[symv_name] >= 1,
+            f"{label}: K1 launched {counts['spd_inverse96']} times, {symv_name} "
+            f"{counts[symv_name]} times")
+    prepare_ms = time_ms(lambda: pre.prepare(ell), warmup=0, iters=2)
+    apply_ms = time_ms(lambda: pre.apply(b), warmup=2, iters=10)
+    spmv_ms = time_ms(lambda: spmv(ell, b), warmup=2, iters=10)
+    log(f"[{label}] steady: prepare_ms={prepare_ms:.1f} apply_ms={apply_ms:.3f} "
+        f"spmv_ms={spmv_ms:.3f}")
+
+    t0 = time.perf_counter()
+    jac = pcg(lambda x: spmv(ell, x), jacobi_preconditioner(ell.diag), b, tol=tol, max_iters=20000)
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t0
+    log(f"[{label}] jacobi: iters={jac.iterations} rel_residual={float(jac.rel_residual):.3e} "
+        f"solve_ms={1e3 * jac_s:.1f} ms_per_iter={1e3 * jac_s / max(jac.iterations, 1):.3f}")
+    require(float(jac.rel_residual) <= tol, f"{label}: Jacobi PCG did not converge")
+    _in_band(label, "Schwarz iterations", res.iterations, rec["iters"][0], IRREGULAR_BAND[0])
+    _in_band(label, "Jacobi iterations", jac.iterations, rec["iters"][1], IRREGULAR_BAND[1])
+
+    # ---- bitwise repeats: a fresh prepare and the apply
+    pre2 = SchwarzPreconditioner(cfg, device=DEVICE)
+    pre2.allocate(mesh.positions)
+    pre2.prepare(ell)
+    same_state = same_bits(pre.state, pre2.state)
+    same_apply = torch.equal(pre.apply(b), pre2.apply(b)) and torch.equal(pre.apply(b), pre.apply(b))
+    log(f"[{label}] bitwise repeat: prepare={same_state} apply={same_apply}")
+    require(same_state and same_apply, f"{label}: prepare/apply not bit-reproducible")
+    del pre2
+
+    # ---- the card's Morton sort against the CPU's
+    cpu_maps = compute_sort_maps(torch.as_tensor(mesh.positions), cfg.morton_normalization)
+    diff = int((cpu_maps.orig_to_sorted != pre.maps.orig_to_sorted.cpu()).sum())
+    limit = int(IRREGULAR_SORT_DIFF * n)
+    log(f"[{label}] sort maps, card vs CPU: {diff} of {n} orig_to_sorted entries differ "
+        f"(limit {limit})")
+    require(diff <= limit, f"{label}: {diff} sort-map entries differ from the CPU's")
+
+    # ---- the kernels on this mesh's blocks and table
+    from precond_tpu_torch.ops.batched_inverse import invert_spd_blocks_panel
+
+    h96 = main_path_h96(dict(pre=pre, ell=ell))
+    check_spd_inverse_blocks(h96, label)
+    bank = int(pre.maps.orig_to_sorted[hub]) // 32
+    hb = h96[bank: bank + 1]
+    truth = torch.linalg.inv(hb.double())
+    scale = float(truth.abs().max())
+    err_k = float((spd_inverse(hb, repair=False).double() - truth).abs().max()) / scale
+    err_p = float((invert_spd_blocks_panel(hb, repair=False).double() - truth).abs().max()) / scale
+    log(f"[K1 spd_inverse] {label} the block of vertex {hub}'s bank ({bank}; the vertex has "
+        f"{int(tim.degrees(arrays)[hub])} spring partners): rel vs f64 kernel {err_k:.2e} "
+        f"plain {err_p:.2e} (tol 1e-3)")
+    require(err_k < 1e-3, f"K1 disagrees on the {label} hub block")
+    del h96, hb, truth
+    if rec["packed"]:
+        check_packed_symv_table(pre.state.inv96, label)
+    else:
+        check_symv(pre.state.inv96, label)
+    out = dict(n=n, width=ell.max_degree, counts=counts, iters=res.iterations,
+               jacobi_iters=jac.iterations, prepare_ms=prepare_ms, ms_per_iter=ms_per_iter,
+               peak_gb=peak_gb)
+    del pre
+    if "retry_headroom" not in rec:
+        return out
+
+    # ---- the overflow retry on the card: a squeezed headroom grows until it fits
+    import dataclasses
+
+    cfg3 = dataclasses.replace(cfg, level_headroom=IRREGULAR_RETRY_FROM)
+    _lib.reset_launch_counts()
+    pre3 = SchwarzPreconditioner(cfg3, device=DEVICE)
+    pre3.allocate(mesh.positions)
+    retries3 = _prepare_counting_retries(pre3, ell)
+    res3 = pcg(lambda x: spmv(ell, x), pre3.apply, b, tol=tol, max_iters=2000)
+    torch.cuda.synchronize()
+    out["counts_retry"] = dict(_lib.launch_counts)
+    cpu3 = SchwarzPreconditioner(cfg3, device="cpu")
+    cpu3.allocate(mesh.positions)
+    _prepare_counting_retries(cpu3, cloth.assemble_system(mesh, device="cpu"))
+    eff = pre3.cfg_effective
+    same_gn = torch.equal(pre3.state.going_next.cpu(), cpu3.state.going_next)
+    log(f"[{label}] overflow retry on the card: level_headroom {IRREGULAR_RETRY_FROM} -> "
+        f"{eff.level_headroom} after {retries3} retries (JAX record {rec['retry_headroom']}), "
+        f"caps={eff.level_capacities(n)}; CPU prepare lands on {cpu3.cfg_effective.level_headroom}; "
+        f"going_next card vs CPU bitwise={same_gn}; overflow={bool(pre3.state.overflow)}; "
+        f"iters={res3.iterations} rel_residual={float(res3.rel_residual):.3e}; launches "
+        f"{out['counts_retry']}")
+    require(retries3 >= 1 and eff.level_headroom == rec["retry_headroom"]
+            and cpu3.cfg_effective.level_headroom == rec["retry_headroom"]
+            and tuple(eff.level_capacities(n)) == tuple(rec["retry_capacities"])
+            and same_gn and not bool(pre3.state.overflow),
+            f"{label}: the overflow retry does not land on the JAX record's headroom")
+    require(float(res3.rel_residual) <= tol, f"{label}: PCG after the retry did not converge")
+    _in_band(f"{label} retry", "Schwarz iterations", res3.iterations, rec["retry_iters"],
+             IRREGULAR_BAND[0])
+    out["retry_iters"] = res3.iterations
+    return out
+
+
+def run_graft_entry() -> dict:
+    """graft_entry_torch.py on the card: entry() once (K1 and K3 launched,
+    iterations within one test of the JAX entry()'s), then
+    dryrun_multichip(2): two gloo ranks sharing cuda:0, each step's
+    iterations within one test of the JAX dryrun's on 2 devices. Returns
+    the launch counts by path (each rank's from its own lines)."""
+    import torch
+
+    import graft_entry_torch as graft
+    from precond_tpu_torch.ops.cuda import _lib
+
+    fn, args = graft.entry()
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn(*args)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = {"graft entry()": dict(_lib.launch_counts)}
+    rec = JAX_RECORD_GRAFT["entry"]
+    log(f"[graft entry] entry(): iters={res.iterations} rel_residual={float(res.rel_residual):.3e} "
+        f"(JAX record {rec}) in {ms:.1f} ms (prepare and solve, first call); launches "
+        f"{counts['graft entry()']}")
+    require(abs(res.iterations - rec) <= 1 and float(res.rel_residual) <= 1e-4,
+            f"graft entry: entry() took {res.iterations} iterations, JAX {rec}")
+    require(counts["graft entry()"]["spd_inverse96"] >= 1 and counts["graft entry()"]["symv96"] >= 1,
+            "graft entry: entry() launched no K1 or no K3")
+    t0 = time.perf_counter()
+    lines = graft.dryrun_multichip(2)
+    log(f"[graft entry] dryrun_multichip(2) on 2 gloo ranks sharing cuda:0: "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec2 = JAX_RECORD_GRAFT["dryrun_2"]
+    want = {"halo": ("symv96", "spd_inverse96"), "grid": ("symv96", "spd_inverse96", "stencil_spmv")}
+    require(len(lines) == 8, f"graft entry: {len(lines)} dryrun lines, expected 8")
+    for i in range(0, 8, 2):
+        rank, step = i // 4, "grid" if "grid path" in lines[i] else "halo"
+        log(f"[graft entry] rank {rank}/2: {lines[i]} | {lines[i + 1]}")
+        iters = int(lines[i].split("iters=")[1].split()[0])
+        launched = json.loads(lines[i + 1].split("launches: ", 1)[1])
+        launched = {k: launched.get(k, 0) for k in _lib.launch_counts}
+        counts[f"graft dryrun_multichip(2) {step} r{rank}"] = launched
+        require(abs(iters - rec2[step]) <= 1,
+                f"graft entry: dryrun {step} step took {iters} iterations, JAX {rec2[step]}")
+        require(all(launched[k] >= 1 for k in want[step]),
+                f"graft entry: dryrun {step} step on rank {rank} launched {launched}")
+    return counts
 
 
 class _PhaseClock:
@@ -3656,6 +3949,13 @@ def main(argv=None) -> int:
     check_grid_references()
     check_collide_references()
     check_collide_grid_reference()
+    t_phase = time.perf_counter()
+    irregular = {name: run_irregular(name, side, radius) for name, side, radius in IRREGULAR}
+    log(f"[irregular] both meshes {time.perf_counter() - t_phase:.1f} s "
+        f"(budget {IRREGULAR_BUDGET_S} s); {smi}")
+    t_phase = time.perf_counter()
+    graft_counts = run_graft_entry()
+    log(f"[graft entry] phase {time.perf_counter() - t_phase:.1f} s (budget {GRAFT_BUDGET_S} s)")
 
     runs = {f"general {args.grid}": big["counts"], f"general {args.dense_grid}": dense["counts"],
             f"cloth {args.cloth}": cl["counts"], f"cloth {args.cloth_dense}": cl_dense["counts"],
@@ -3674,6 +3974,11 @@ def main(argv=None) -> int:
             "general 24 bf16 per_axis": gb_oracle["counts"],
             f"cloth {args.cloth} bf16": cb_big["counts"],
             f"cloth {args.cloth_dense} bf16": cb_small["counts"]}
+    for name, irr in irregular.items():
+        runs[f"irregular {name}"] = irr["counts"]
+        if "counts_retry" in irr:
+            runs[f"irregular {name} retry"] = irr["counts_retry"]
+    runs.update(graft_counts)
 
     def by_path(name):
         return {path: counts[name] for path, counts in runs.items()}

@@ -1,8 +1,9 @@
-"""Import hygiene: the port, chip_smoke.py, bench_torch.py and the port's
-scripts (scripts/torch_*.py) never import JAX, the JAX package
-(precond_tpu_torch itself excepted) or JAX's dependencies that the card's
-machine lacks (ml_dtypes, orbax); bench_torch.py does not import
-chip_smoke.py either."""
+"""Import hygiene: the port, chip_smoke.py, bench_torch.py,
+graft_entry_torch.py and the port's scripts (scripts/torch_*.py) never
+import JAX, the JAX package (precond_tpu_torch itself excepted) or JAX's
+dependencies that the card's machine lacks (ml_dtypes, orbax);
+bench_torch.py and graft_entry_torch.py do not import chip_smoke.py
+either."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "bench_torch.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "bench_torch.py",
+                                           "graft_entry_torch.py")]
     scripts = os.path.join(ROOT, "scripts")
     out += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
             if f.startswith("torch_") and f.endswith(".py")]
@@ -25,7 +27,7 @@ def _sources():
 def _forbidden(name: str, path: str) -> bool:
     top = name.split(".")[0]
     if top == "chip_smoke":
-        return os.path.basename(path) == "bench_torch.py"
+        return os.path.basename(path) in ("bench_torch.py", "graft_entry_torch.py")
     return top in ("jax", "jaxlib", "precond_tpu", "ml_dtypes", "orbax")
 
 
@@ -49,15 +51,16 @@ def test_no_jax_imports(path):
 
 def test_sources_found():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
-    assert "chip_smoke.py" in names and "bench_torch.py" in names
+    assert {"chip_smoke.py", "bench_torch.py", "graft_entry_torch.py"} <= names
     assert _forbidden("chip_smoke", os.path.join(ROOT, "bench_torch.py"))
+    assert _forbidden("chip_smoke", os.path.join(ROOT, "graft_entry_torch.py"))
     assert not _forbidden("chip_smoke", os.path.join(ROOT, "scripts", "x.py"))
     assert os.path.join("precond_tpu_torch", "solver.py") in names
     for script in ("torch_multiprocess_worker.py", "torch_scaling_model.py",
                    "torch_scaling_capacity.py", "torch_pod_solve.py", "torch_probe_common.py",
                    "torch_probe_stiff.py", "torch_probe_isosort.py", "torch_probe_damping.py",
                    "torch_probe_contact.py", "torch_probe_scatter_cost.py",
-                   "torch_probe_crossing_fix.py"):
+                   "torch_probe_crossing_fix.py", "torch_irregular_mesh.py"):
         assert os.path.join("scripts", script) in names, script
     for mod in ("reference_api.py", "models/collision.py", "models/hashgrid.py",
                 "ops/contact.py", "ops/stencils.py", "utils/scatter.py", "models/simulator.py",

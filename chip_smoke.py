@@ -52,7 +52,8 @@ what comes out against references. It prints, in order:
     centre vertex with ~125 mesh neighbours, dense: K1 and K3), each
     allocate -> prepare -> PCG against block-Jacobi and the JAX record of
     scripts/jax_irregular_record.py (the mesh's digest, width, nnz, levels
-    and capacities equal; iterations in a band), bitwise repeats, the
+    and capacities equal; iterations in a band; the recomputed residual
+    within 1.5x the record's), bitwise repeats, the
     card's sort maps against the CPU's, K1 on the mesh's blocks (the hub's
     block by itself) and K2 or K3 on its table; on the hub mesh a prepare at
     level_headroom 0.3 whose overflow retries land on the record's headroom
@@ -345,6 +346,10 @@ JAX_RECORD_IRREGULAR = {
 # iteration apart on the 977-vertex hub mesh (tests/test_torch_irregular.py);
 # 5% leaves ~5 iterations of Schwarz's ~110 and ~25 of Jacobi's ~490.
 IRREGULAR_BAND = (0.05, 0.05)
+# The recomputed residual ||b - H x|| / ||b|| against the record's: the card
+# read 2.156e-4 / 2.101e-4 where JAX reads 2.145e-4 / 2.118e-4 (1024 / 256
+# hub), so 1.5x the record's, under run_general's 10 * tol as the outer limit.
+IRREGULAR_TRUE_REL_FACTOR = 1.5
 IRREGULAR_RETRY_FROM = 0.3
 # The card's Morton sort maps against the CPU's: the normalization is
 # correctly rounded on both, so they should agree; a flipped tie moves one
@@ -1161,12 +1166,15 @@ def run_irregular(name: str, side: int, radius: float, tol: float = 1e-4) -> dic
         f"retries={retries} level_headroom={pre.cfg_effective.level_headroom}")
     # The recomputed residual: in f32 the recursive one drifts from it on these
     # stiff meshes, in the JAX package alike (its own recomputed residual is in
-    # the record), so it is held to run_general's 10 * tol.
+    # the record), so it is held to the record's times IRREGULAR_TRUE_REL_FACTOR,
+    # within run_general's 10 * tol.
+    true_limit = min(IRREGULAR_TRUE_REL_FACTOR * rec["true_rel"], 10 * tol)
     log(f"[{label}] true residual {true_rel:.3e}, JAX record's {rec['true_rel']:.3e} "
-        f"(limit {10 * tol:.0e})")
+        f"(limit {true_limit:.3e})")
     require(res.iterations < 2000 and float(res.rel_residual) <= tol
-            and torch.isfinite(res.x).all().item() and true_rel <= 10 * tol,
-            f"{label}: Schwarz PCG did not reach {tol} (true residual {true_rel:.3e})")
+            and torch.isfinite(res.x).all().item() and true_rel <= true_limit,
+            f"{label}: Schwarz PCG did not reach {tol} (true residual {true_rel:.3e}, "
+            f"limit {true_limit:.3e})")
     require(retries == 0 and isinstance(pre.state.inv96, PackedInverse) == rec["packed"],
             f"{label}: retried {retries} times or the storage is not the record's")
     symv_name = "packed_symv96" if rec["packed"] else "symv96"

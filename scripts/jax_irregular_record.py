@@ -12,7 +12,7 @@ the ELL width and nnz (9 (N + stored off-diagonal blocks), bench.py's
 nnz_spmv), the levels, capacities, packed or dense storage, the
 level_headroom in effect and the retries, the iterations and residuals
 (Schwarz's also recomputed as ||b - H x|| / ||b||),
-and the mesh's digests. A mesh named with --retry also gets a prepare at
+and the mesh's digests. A mesh with a hub also gets a prepare at
 level_headroom 0.3: the headroom its overflow retries land on, and that
 solve's iterations.
 
@@ -24,7 +24,7 @@ Prints a line per record, then one JSON line. Runs the JAX package on the
 CPU; the PyTorch port never imports it.
 
     JAX_PLATFORMS=cpu python3 scripts/jax_irregular_record.py \\
-        [--mesh 1024 --mesh 256:19] [--retry 256:19] [--no-graft]
+        [--mesh 1024 --mesh 256:19]
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ def _true_rel(ell, x, b) -> float:
     return float(jnp.linalg.norm(b - blockcsr.spmv(ell, x)) / jnp.linalg.norm(b))
 
 
-def record_mesh(side: int, radius: float, retry: bool) -> dict:
+def record_mesh(side: int, radius: float) -> dict:
     t0 = time.perf_counter()
     arrays = tim.irregular_cloth(side, radius)
     mesh = cloth.ClothMesh(**arrays)
@@ -124,7 +124,7 @@ def record_mesh(side: int, radius: float, retry: bool) -> dict:
     out.update(schwarz_iters=int(rs.iterations), schwarz_rel=float(rs.rel_residual),
                schwarz_true_rel=_true_rel(ell, rs.x, b),
                jacobi_iters=int(jac.iterations), jacobi_rel=float(jac.rel_residual))
-    if retry:
+    if radius > 0:
         pre3, r3 = _prepared(mesh, ell, SchwarzConfig(level_headroom=0.3))
         r3s = _schwarz(pre3, ell, b)
         out["retry"] = {"from": 0.3, "headroom": pre3.cfg_effective.level_headroom,
@@ -160,20 +160,15 @@ def record_graft() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mesh", action="append", help="side or side:hub_radius (repeatable)")
-    ap.add_argument("--retry", action="append", default=None,
-                    help="meshes that also get the level_headroom 0.3 prepare")
-    ap.add_argument("--no-graft", action="store_true", help="skip entry() and the dryrun")
     args = ap.parse_args(argv)
     meshes = args.mesh or ["1024", "256:19"]
-    retry = set(args.retry if args.retry is not None else ["256:19"])
     out = {"versions": {"jax": jax.__version__, "numpy": np.__version__,
                         "scipy": __import__("scipy").__version__},
            "irregular": {}}
     for spec in meshes:
         side, radius = parse_mesh(spec)
-        out["irregular"][mesh_name(side, radius)] = record_mesh(side, radius, spec in retry)
-    if not args.no_graft:
-        out["graft"] = record_graft()
+        out["irregular"][mesh_name(side, radius)] = record_mesh(side, radius)
+    out["graft"] = record_graft()
     print(json.dumps(out), flush=True)
     return 0
 

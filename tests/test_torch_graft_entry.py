@@ -4,12 +4,14 @@ entry(device="cpu") solves the JAX entry()'s 32 x 32 cloth to 1e-4 within
 one convergence test (both test every iteration) of JAX's count, with x
 within 1e-4 of JAX's in relative norm; without a card entry() raises.
 dryrun_multichip(2, device="cpu") runs both steps on two gloo ranks, each
-within one test of the JAX dryrun on two of conftest's virtual devices.
+within one test of the JAX dryrun on two of conftest's virtual devices
+(the two dryruns run side by side).
 The dryrun's 32 x 8 cloth fills every rank's rows at 2, 4 and 8 ranks:
 no padding, at least one 32-vertex bank each.
 """
 
 import re
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -58,9 +60,13 @@ def test_entry_raises_without_card(monkeypatch):
 
 
 def test_dryrun_matches_jax(capsys):
-    jax_graft.dryrun_multichip(2)
-    want = _steps(capsys.readouterr().out.splitlines())
-    lines = graft.dryrun_multichip(2, device="cpu")
+    # The port's ranks are processes that write to their own logs: they run
+    # while JAX's dryrun runs (and prints) in this one.
+    with ThreadPoolExecutor(1) as pool:
+        port = pool.submit(graft.dryrun_multichip, 2, device="cpu")
+        jax_graft.dryrun_multichip(2)
+        want = _steps(capsys.readouterr().out.splitlines())
+        lines = port.result()
     got = _steps(lines)
     assert len(want["halo"]) == len(want["grid"]) == 1
     for step in ("halo", "grid"):

@@ -85,15 +85,17 @@ def _port_pre(m, **kw):
     return tpre
 
 
-def _jax_pcg(jpre, jell, b):
+def _jax_apply_and_pcg(jpre, jell, r, b):
+    """JAX's apply of r and its PCG solve of b, compiled as one function."""
     cfg = jpre.cfg_effective
 
     @jax.jit
-    def solve(state, ell, b):
-        return jpcg.pcg(lambda x: jbc.spmv(ell, x), lambda r: jax_precondition(state, r, cfg), b,
-                        tol=1e-4, max_iters=1000)
+    def run(state, ell, r, b):
+        return jax_precondition(state, r, cfg), jpcg.pcg(
+            lambda x: jbc.spmv(ell, x), lambda v: jax_precondition(state, v, cfg), b, tol=1e-4,
+            max_iters=1000)
 
-    return solve(jpre.state, jell, jnp.asarray(b))
+    return run(jpre.state, jell, jnp.asarray(r), jnp.asarray(b))
 
 
 def test_mesh_arrays_deterministic_without_duplicate_springs(meshes):
@@ -109,6 +111,29 @@ def test_mesh_arrays_deterministic_without_duplicate_springs(meshes):
     assert 36 <= tim.mesh_degrees(a)[hub] <= 48 and meshes["tmesh"].grid is None
     assert 970 <= n <= 1030
     assert tim.digest(a) != tim.digest(tim.irregular_cloth(SIDE, HUB_RADIUS, seed=1))
+
+
+@pytest.mark.parametrize("radius", [0.0, HUB_RADIUS], ids=["plain", "hub"])
+def test_mesh_follows_recipe(radius):
+    """Unit square, make_grid's z_wave, Euler's formula for a triangulated
+    disc, each edge's opposite vertices in its faces, and the stiffnesses:
+    k_struct on the mesh edges, k_bend on the rest."""
+    m = tim.irregular_cloth(SIDE, radius)
+    pos, edges, faces = m["positions"], m["edges"], m["faces"]
+    n = len(pos)
+    assert pos[:, :2].min() == 0.0 and pos[:, :2].max() == 1.0
+    np.testing.assert_allclose(pos[:, 2], 0.02 * np.sin(7.3 * pos[:, 0]) * np.cos(5.1 * pos[:, 1]),
+                               atol=1e-7)
+    assert n - len(edges) + len(faces) == 1
+    tri = {tuple(sorted(f)) for f in faces.tolist()}
+    for lo, hi, o0, o1 in edges.tolist():
+        assert tuple(sorted((lo, hi, o0))) in tri
+        assert o1 == -1 or tuple(sorted((lo, hi, o1))) in tri
+    assert (m["stiffness"][:len(edges)] == tim.K_STRUCT).all()
+    assert (m["stiffness"][len(edges):] == tim.K_BEND).all()
+    np.testing.assert_array_equal(m["springs"][:len(edges)], edges[:, :2])
+    deg = tim.mesh_degrees(m)
+    assert deg.min() >= 2 and (deg.max() >= 36) == bool(radius)
 
 
 @pytest.mark.parametrize("what", ["sort_maps", "ell", "hierarchy"])
@@ -151,13 +176,12 @@ def test_apply_and_pcg_match_jax(meshes, symv):
               for k, v in jpre.state._asdict().items()}
     same = convert.apply_state_from_numpy(**fields, device="cpu")
     r = np.random.default_rng(4).standard_normal((meshes["tmesh"].num_verts, 3)).astype(np.float32)
-    cfg = jpre.cfg_effective
-    zj = _np(jax.jit(lambda st, v: jax_precondition(st, v, cfg))(jpre.state, jnp.asarray(r)))
+    b, jell, tell = meshes["b"], meshes["jell"], meshes["tell"]
+    zj, jres = _jax_apply_and_pcg(jpre, jell, r, b)
+    zj = _np(zj)
     zt = precondition(same, torch.as_tensor(r), SchwarzConfig(**kw)).numpy()
     np.testing.assert_allclose(zt, zj, rtol=1e-5, atol=1e-6 * np.abs(zj).max())
 
-    b, jell, tell = meshes["b"], meshes["jell"], meshes["tell"]
-    jres = _jax_pcg(jpre, jell, b)
     tres = pcg.pcg(lambda x: blockcsr.spmv(tell, x), tpre.apply, torch.as_tensor(b), tol=1e-4,
                    max_iters=1000)
     assert float(jres.rel_residual) <= 1e-4 and float(tres.rel_residual) <= 1e-4

@@ -11,7 +11,9 @@ pinned-vertex constraints and optional self-collision penalties.
 The JAX package jits each frame into one dispatch; the port runs it
 eagerly on the simulator's device (the card unless the caller asks for the
 CPU), with the PCG's one host sync per iteration. Every float scatter-add
-is utils/scatter.accumulate_rows.
+is utils/scatter.accumulate_rows. A step is the span ``frame``, split into
+``frame.resort``, ``frame.detect``, ``frame.rhs``, ``frame.refresh``,
+``frame.prepare``, ``frame.pcg`` and ``frame.update`` (profiling.span).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..ops.gridapply import precondition_grid, precondition_grid_cm
 from ..ops.gridassembly import pin_grid_blocks
 from ..ops.stencils import build_stencils
 from ..parallel.pcg import pcg
+from ..profiling import set_count, span
 from ..solver import SchwarzPreconditioner, SortMaps, prepare_box, prepare_grid, prepare_with_system
 from ..utils import boxmorton as bm
 from ..utils import gridmorton as gm
@@ -101,19 +104,21 @@ def _sorted_solve(ell, maps: SortMaps, cfg: SchwarzConfig, st_sys, rhs, tol, max
     (rhs permuted once, x back once) with the block-ELL SpMV plus the
     rank-1 contact SpMV of the stencils mapped into sorted space."""
     n = rhs.shape[0]
-    state, ells = prepare_with_system(ell, maps, cfg, st_sys)
-    if st_sys is not None:
-        mapped = st_sys._replace(
-            idx=maps.orig_to_sorted[torch.clamp(st_sys.idx, 0, n - 1).long()])
+    with span("frame.prepare"):
+        state, ells = prepare_with_system(ell, maps, cfg, st_sys)
+        if st_sys is not None:
+            mapped = st_sys._replace(
+                idx=maps.orig_to_sorted[torch.clamp(st_sys.idx, 0, n - 1).long()])
 
-        def spmv_op(p):
-            return blockcsr.spmv(ells, p) + stencil_contact_spmv(mapped, p)
-    else:
-        def spmv_op(p):
-            return blockcsr.spmv(ells, p)
-    res = pcg(spmv_op, lambda r: precondition_sorted(state, r, cfg),
-              rhs[maps.sorted_to_orig.long()], tol=tol, max_iters=max_iters)
-    return res, res.x[maps.orig_to_sorted.long()]
+            def spmv_op(p):
+                return blockcsr.spmv(ells, p) + stencil_contact_spmv(mapped, p)
+        else:
+            def spmv_op(p):
+                return blockcsr.spmv(ells, p)
+    with span("frame.pcg"):
+        res = pcg(spmv_op, lambda r: precondition_sorted(state, r, cfg),
+                  rhs[maps.sorted_to_orig.long()], tol=tol, max_iters=max_iters)
+        return res, res.x[maps.orig_to_sorted.long()]
 
 
 def _pinned_mask(n: int, pinned, device) -> torch.Tensor:
@@ -228,13 +233,15 @@ class SoftBodySim:
         else:
             spmv_op, pre_apply = (lambda p: blockcsr.spmv(self.ell, p)), self.pre.apply
 
-        # f_int = -K (x - x0); K = H - (m/dt^2) I on unpinned rows
-        dxr = x - self._rest_d
-        f_int = -(spmv_op(dxr) - m_dt2 * dxr)
-        y = x + dt * v + dt * dt * self.gravity[None, :]
-        rhs = m_dt2 * (y - x) + f_int
-        rhs = torch.where(self.pinned[:, None], torch.zeros_like(rhs), rhs)
-        res = pcg(spmv_op, pre_apply, rhs, tol=self.tol, max_iters=self.max_iters)
+        with span("frame.rhs"):
+            # f_int = -K (x - x0); K = H - (m/dt^2) I on unpinned rows
+            dxr = x - self._rest_d
+            f_int = -(spmv_op(dxr) - m_dt2 * dxr)
+            y = x + dt * v + dt * dt * self.gravity[None, :]
+            rhs = m_dt2 * (y - x) + f_int
+            rhs = torch.where(self.pinned[:, None], torch.zeros_like(rhs), rhs)
+        with span("frame.pcg"):
+            res = pcg(spmv_op, pre_apply, rhs, tol=self.tol, max_iters=self.max_iters)
         return res, res.x, None
 
     # -- dynamic-system step (corotational, neohookean and/or colliding) ---
@@ -244,37 +251,43 @@ class SoftBodySim:
         dt = mesh.dt
         m_dt2 = mesh.mass / dt**2
         tets, rest, ke0 = self._tets_d, self._rest_d, self._ke0
-        if self.material == "corotational":
-            r = tet_model.corot_rotations(x, rest, tets)
-            ke = tet_model.element_blocks_corot(ke0, r)
-            f_int = tet_model.corot_forces(ke0, r, x, rest, tets)
-        elif self.material == "neohookean":
-            ke = tet_model.snh_element_blocks(x, rest, tets, mesh.lam, mesh.mu)
-            f_int = tet_model.snh_forces(x, rest, tets, mesh.lam, mesh.mu)
-        else:
-            ke = ke0
-            eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(tets.shape[0], 3, 3)
-            f_int = tet_model.corot_forces(ke0, eye, x, rest, tets)
-        ell = _pin_ell(tet_model.fill_ell_from_ke(*self._ell_struct, ke, m_dt2), self.pinned, m_dt2)
+        with span("frame.refresh"):
+            if self.material == "corotational":
+                r = tet_model.corot_rotations(x, rest, tets)
+                ke = tet_model.element_blocks_corot(ke0, r)
+                f_int = tet_model.corot_forces(ke0, r, x, rest, tets)
+            elif self.material == "neohookean":
+                ke = tet_model.snh_element_blocks(x, rest, tets, mesh.lam, mesh.mu)
+                f_int = tet_model.snh_forces(x, rest, tets, mesh.lam, mesh.mu)
+            else:
+                ke = ke0
+                eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(tets.shape[0], 3, 3)
+                f_int = tet_model.corot_forces(ke0, eye, x, rest, tets)
+            ell = _pin_ell(tet_model.fill_ell_from_ke(*self._ell_struct, ke, m_dt2), self.pinned,
+                           m_dt2)
 
         stencils = st_sys = info = None
         if self.collide:
-            stencils, st_sys, info = self.contact.detect(x, self._faces_d, self._edges_d,
-                                                         self.pinned, cfg)
+            with span("frame.detect"):
+                stencils, st_sys, info = self.contact.detect(x, self._faces_d, self._edges_d,
+                                                             self.pinned, cfg)
 
-        # rhs: inertia target + internal + contact penalty forces
-        y = x + dt * v + dt * dt * self.gravity[None, :]
-        rhs = m_dt2 * (y - x) + f_int
-        if stencils is not None:
-            rhs = rhs + contact_forces(stencils, x, self.contact.rest_gap)
-        rhs = torch.where(self.pinned[:, None], torch.zeros_like(rhs), rhs)
+        with span("frame.rhs"):
+            # rhs: inertia target + internal + contact penalty forces
+            y = x + dt * v + dt * dt * self.gravity[None, :]
+            rhs = m_dt2 * (y - x) + f_int
+            if stencils is not None:
+                rhs = rhs + contact_forces(stencils, x, self.contact.rest_gap)
+            rhs = torch.where(self.pinned[:, None], torch.zeros_like(rhs), rhs)
 
         maps = self.pre.maps
         if self._box is not None:
-            bsys = boxstencil.from_ell(ell, self._box)
-            dgr, drr = boxstencil.planes_from_ell(ell, self._box)
-            inv96 = prepare_box(dgr, drr, boxstencil.BOX_OFFSETS, self._box, cfg,
-                                st_sys, maps.orig_to_sorted)
+            with span("frame.refresh"):
+                bsys = boxstencil.from_ell(ell, self._box)
+                dgr, drr = boxstencil.planes_from_ell(ell, self._box)
+            with span("frame.prepare"):
+                inv96 = prepare_box(dgr, drr, boxstencil.BOX_OFFSETS, self._box, cfg,
+                                    st_sys, maps.orig_to_sorted)
             box_spmv, pre_op = self._box_ops(bsys, inv96)
             if st_sys is not None:
                 # rank-1 stencil form of the contact Hessian (ops/contact.py)
@@ -282,21 +295,24 @@ class SoftBodySim:
                     return box_spmv(p) + stencil_contact_spmv(st_sys, p)
             else:
                 spmv_op = box_spmv
-            res = pcg(spmv_op, pre_op, rhs, tol=self.tol, max_iters=self.max_iters)
+            with span("frame.pcg"):
+                res = pcg(spmv_op, pre_op, rhs, tol=self.tol, max_iters=self.max_iters)
             return res, res.x, info
         res, x_unsorted = _sorted_solve(ell, maps, cfg, st_sys, rhs, self.tol, self.max_iters)
         return res, x_unsorted, info
 
     def step(self) -> SimState:
-        x, v = self.state.positions, self.state.velocities
-        if self._static_system:
-            res, dx, info = self._step_static(x, v)
-        else:
-            res, dx, info = self._step_dynamic(x, v)
-        dx = torch.where(self.pinned[:, None], torch.zeros_like(dx), dx)
-        x_new = x + dx
-        self.state = SimState(positions=x_new, velocities=(x_new - x) / self.mesh.dt,
-                              step_count=self.state.step_count + 1)
+        with span("frame"):
+            x, v = self.state.positions, self.state.velocities
+            if self._static_system:
+                res, dx, info = self._step_static(x, v)
+            else:
+                res, dx, info = self._step_dynamic(x, v)
+            with span("frame.update"):
+                dx = torch.where(self.pinned[:, None], torch.zeros_like(dx), dx)
+                x_new = x + dx
+                self.state = SimState(positions=x_new, velocities=(x_new - x) / self.mesh.dt,
+                                      step_count=self.state.step_count + 1)
         self.last_solve = res
         self.last_detect_info = info
         return self.state
@@ -345,7 +361,7 @@ class ClothSim:
         self.pre = SchwarzPreconditioner(cfg, device=dev)
         # fixed ELL sparsity from rest topology; values refresh per step
         self._ell0 = cloth_model.assemble_system(mesh, device=dev)
-        _, _, spring_of_slot = cloth_model.ell_structure_from_springs(n, mesh.springs)
+        _, ell_mask, spring_of_slot = cloth_model.ell_structure_from_springs(n, mesh.springs)
         # grid path: the analytic tile order follows connectivity, which is
         # static for a grid, so it never re-sorts
         self._gmk = None
@@ -356,6 +372,10 @@ class ClothSim:
             self._stencil_offsets, ks = cloth_model.stencil_structure_from_springs(
                 mesh.grid[0], mesh.grid[1], mesh.springs, mesh.stiffness)
             self._stencil_ks = t(ks)
+        else:
+            # the general path's SpMV walks every slot of the padded ELL
+            set_count("spmv.ell_slots", int(ell_mask.size))
+            set_count("spmv.ell_stored", int(ell_mask.sum()))
         self._springs_d = t(mesh.springs)
         self._stiff_d = t(mesh.stiffness)
         self._rest_pos = t(np.asarray(mesh.positions, np.float32))
@@ -391,15 +411,18 @@ class ClothSim:
         pinned = self.pinned
         stencils = st_sys = info = None
         if self.collide:
-            stencils, st_sys, info = self.contact.detect(x, self._faces_d, self._edges_d,
-                                                         pinned, cfg)
-        rhs = self._rhs(x, v, stencils)
+            with span("frame.detect"):
+                stencils, st_sys, info = self.contact.detect(x, self._faces_d, self._edges_d,
+                                                             pinned, cfg)
+        with span("frame.rhs"):
+            rhs = self._rhs(x, v, stencils)
         maps = self.pre.maps
         gmk = self._gmk
         if gmk is None:
-            ell = cloth_model.update_ell_blocks(self._ell0, self._springs_d, self._stiff_d, x,
-                                                m_dt2, self._sos_d)
-            ell = _pin_ell(ell, pinned, m_dt2)
+            with span("frame.refresh"):
+                ell = cloth_model.update_ell_blocks(self._ell0, self._springs_d, self._stiff_d,
+                                                    x, m_dt2, self._sos_d)
+                ell = _pin_ell(ell, pinned, m_dt2)
             res, x_unsorted = _sorted_solve(ell, maps, cfg, st_sys, rhs, self.tol, self.max_iters)
             return res, x_unsorted, info
 
@@ -407,12 +430,15 @@ class ClothSim:
         # contacts ride the same static path with arithmetic-climb terms
         grid, offs = mesh.grid, self._stencil_offsets
         full_off = tuple(o for di, dj in offs for o in ((di, dj), (-di, -dj)))
-        dgr, drr = cloth_model.update_grid_blocks(offs, self._stencil_ks, x, m_dt2, grid)
-        dgr, drr = pin_grid_blocks(dgr, drr, full_off, grid, pinned, m_dt2)
-        inv96 = prepare_grid(dgr, drr, full_off, gmk, cfg, st_sys, maps.orig_to_sorted)
-        ssys = gridstencil.pin_vertices(
-            cloth_model.update_stencil_blocks(offs, self._stencil_ks, x, m_dt2, grid),
-            pinned, m_dt2)
+        with span("frame.refresh"):
+            dgr, drr = cloth_model.update_grid_blocks(offs, self._stencil_ks, x, m_dt2, grid)
+            dgr, drr = pin_grid_blocks(dgr, drr, full_off, grid, pinned, m_dt2)
+        with span("frame.prepare"):
+            inv96 = prepare_grid(dgr, drr, full_off, gmk, cfg, st_sys, maps.orig_to_sorted)
+        with span("frame.refresh"):
+            ssys = gridstencil.pin_vertices(
+                cloth_model.update_stencil_blocks(offs, self._stencil_ks, x, m_dt2, grid),
+                pinned, m_dt2)
         if isinstance(inv96, (PackedInverseCM, DenseInverseCM)):
             # comp-major solve: [3,N] carries, transpose-free SpMV
             def pre_op(r):
@@ -425,8 +451,10 @@ class ClothSim:
             else:
                 def spmv_op(p):
                     return gridstencil.spmv_t(ssys, p)
-            res = pcg(spmv_op, pre_op, rhs.T.contiguous(), tol=self.tol, max_iters=self.max_iters)
-            return res, res.x.T, info
+            with span("frame.pcg"):
+                res = pcg(spmv_op, pre_op, rhs.T.contiguous(), tol=self.tol,
+                          max_iters=self.max_iters)
+                return res, res.x.T, info
         g2m, m2g = gm.crossing_pair(gmk)
 
         def pre_op(r):
@@ -438,24 +466,30 @@ class ClothSim:
         else:
             def spmv_op(p):
                 return gridstencil.spmv(ssys, p)
-        res = pcg(spmv_op, pre_op, rhs, tol=self.tol, max_iters=self.max_iters)
+        with span("frame.pcg"):
+            res = pcg(spmv_op, pre_op, rhs, tol=self.tol, max_iters=self.max_iters)
         return res, res.x, info
 
     def step(self) -> SimState:
         """Advance one frame: re-sort on the cadence (general path), then
         detection, prepare and PCG."""
-        x, v = self.state.positions, self.state.velocities
-        if self._gmk is not None:
-            # analytic grid ordering is topology-derived: never re-sorts
-            self.pre.maps = self._grid_maps
-            self.pre.frame_index += 1
-        else:
-            self.pre.allocate(x)  # refreshes Morton maps on the cadence
-        res, x_unsorted, info = self._frame(x, v)
-        dx = torch.where(self.pinned[:, None], torch.zeros_like(x_unsorted), x_unsorted)
-        x_new = x + dx
-        self.state = SimState(positions=x_new, velocities=(x_new - x) / self.mesh.dt,
-                              step_count=self.state.step_count + 1)
+        with span("frame"):
+            x, v = self.state.positions, self.state.velocities
+            if self._gmk is not None:
+                # analytic grid ordering is topology-derived: never re-sorts
+                self.pre.maps = self._grid_maps
+                self.pre.frame_index += 1
+            elif self.pre.resorts_next():
+                with span("frame.resort"):
+                    self.pre.allocate(x)  # refreshes Morton maps on the cadence
+            else:
+                self.pre.allocate(x)  # counts the frame toward the cadence
+            res, x_unsorted, info = self._frame(x, v)
+            with span("frame.update"):
+                dx = torch.where(self.pinned[:, None], torch.zeros_like(x_unsorted), x_unsorted)
+                x_new = x + dx
+                self.state = SimState(positions=x_new, velocities=(x_new - x) / self.mesh.dt,
+                                      step_count=self.state.step_count + 1)
         self.last_solve = res
         self.last_detect_info = info
         return self.state

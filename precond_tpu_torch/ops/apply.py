@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SchwarzConfig
+from ..profiling import span
 from ..utils.gather import take_fill
 from ..utils.scatter import accumulate_rows
 from .cuda.packed_symv import PackedInverse, packed_symv
@@ -196,16 +197,19 @@ def precondition_sorted(state: ApplyState, r_sorted: torch.Tensor,
     and x once after the loop) avoids two N-row permutes per iteration.
     """
     n = r_sorted.shape[0]
-    mr = restrict_residual(r_sorted, state, cfg, n)
+    with span("apply.restrict"):
+        mr = restrict_residual(r_sorted, state, cfg, n)
     rhs = mr.reshape(-1, 3 * BANK)                        # [B,96]
-    if isinstance(state.inv96, PackedInverse):
-        z96 = packed_symv(state.inv96, rhs)
-    else:
-        # both dense forms of the JAX package (the XLA einsum and the Pallas
-        # batched_symv) are the one dense kernel here
-        z96 = batched_symv(state.inv96, rhs)
+    with span("apply.symv"):
+        if isinstance(state.inv96, PackedInverse):
+            z96 = packed_symv(state.inv96, rhs)
+        else:
+            # both dense forms of the JAX package (the XLA einsum and the
+            # Pallas batched_symv) are the one dense kernel here
+            z96 = batched_symv(state.inv96, rhs)
     mz = z96.reshape(-1, 3)                               # [total,3]
-    return prolong_and_collect(mz, state, cfg, n)
+    with span("apply.prolong"):
+        return prolong_and_collect(mz, state, cfg, n)
 
 
 def precondition(state: ApplyState, r: torch.Tensor, cfg: SchwarzConfig) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ..config import SchwarzConfig
 from ..device import resolve_device
+from ..profiling import span
 from .cuda.packed_symv import (
     DenseInverseCM,
     PackedInverse,
@@ -147,30 +148,33 @@ def precondition_grid_cm(inv_cm, rs_cm: torch.Tensor, cfg: SchwarzConfig) -> tor
     levels = cfg.num_levels(n)
     sizes = grid_level_sizes(n, cfg)
     # ---- restrict: per-level lane sums ----
-    parts = [rs_cm.reshape(3, n // BANK, BANK)]
-    cur = parts[0]
-    for l in range(levels - 1):
-        nbl = (sizes[l] + BANK - 1) // BANK
-        vals = cur[:, :nbl].sum(dim=2)                   # (3, sizes[l+1])
-        capb = (offs[l + 2] - offs[l + 1]) // BANK
-        cur = F.pad(vals, (0, capb * BANK - vals.shape[1])).reshape(3, capb, BANK)
-        parts.append(cur)
-    mr = torch.cat(parts, dim=1)                         # (3, Btot, 32)
-    if isinstance(inv_cm, DenseInverseCM):
-        z3 = dense_symv_cm(inv_cm, mr)
-    else:
-        z3 = packed_symv_cm(inv_cm, mr)
+    with span("apply.restrict"):
+        parts = [rs_cm.reshape(3, n // BANK, BANK)]
+        cur = parts[0]
+        for l in range(levels - 1):
+            nbl = (sizes[l] + BANK - 1) // BANK
+            vals = cur[:, :nbl].sum(dim=2)               # (3, sizes[l+1])
+            capb = (offs[l + 2] - offs[l + 1]) // BANK
+            cur = F.pad(vals, (0, capb * BANK - vals.shape[1])).reshape(3, capb, BANK)
+            parts.append(cur)
+        mr = torch.cat(parts, dim=1)                     # (3, Btot, 32)
+    with span("apply.symv"):
+        if isinstance(inv_cm, DenseInverseCM):
+            z3 = dense_symv_cm(inv_cm, mr)
+        else:
+            z3 = packed_symv_cm(inv_cm, mr)
     # ---- prolong + additive collect ----
-    top = min(levels, cfg.max_applied_levels)
-    pz = z3[:, offs[top - 1] // BANK: offs[top] // BANK]
-    for l in range(top - 2, -1, -1):
-        curz = z3[:, offs[l] // BANK: offs[l + 1] // BANK]
-        nb = (offs[l + 1] - offs[l]) // BANK
-        vals = pz.reshape(3, -1)[:, :nb]                 # parent z per child bank
-        if l == 0 and cfg.coarse_damping != 1.0:
-            vals = vals * cfg.coarse_damping             # z = z0 + theta*sum z_l
-        pz = curz + vals[:, :, None]
-    return pz.reshape(3, -1)[:, :n]
+    with span("apply.prolong"):
+        top = min(levels, cfg.max_applied_levels)
+        pz = z3[:, offs[top - 1] // BANK: offs[top] // BANK]
+        for l in range(top - 2, -1, -1):
+            curz = z3[:, offs[l] // BANK: offs[l + 1] // BANK]
+            nb = (offs[l + 1] - offs[l]) // BANK
+            vals = pz.reshape(3, -1)[:, :nb]             # parent z per child bank
+            if l == 0 and cfg.coarse_damping != 1.0:
+                vals = vals * cfg.coarse_damping         # z = z0 + theta*sum z_l
+            pz = curz + vals[:, :, None]
+        return pz.reshape(3, -1)[:, :n]
 
 
 def precondition_grid(inv96, r_sorted: torch.Tensor, cfg: SchwarzConfig) -> torch.Tensor:
@@ -188,27 +192,30 @@ def precondition_grid(inv96, r_sorted: torch.Tensor, cfg: SchwarzConfig) -> torc
     levels = cfg.num_levels(n)
     sizes = grid_level_sizes(n, cfg)
     # ---- restrict (BuildResidualHierarchy, cpp:1548-1598) ----
-    parts = [r_sorted.reshape(-1, 3 * BANK)]
-    cur = parts[0]
-    for l in range(levels - 1):
-        nbl = (sizes[l] + BANK - 1) // BANK              # active banks at level l
-        vals = cur[:nbl].reshape(nbl, BANK, 3).sum(dim=1)  # [sizes[l+1], 3] bank sums
-        capb = (offs[l + 2] - offs[l + 1]) // BANK
-        cur = F.pad(vals, (0, 0, 0, capb * BANK - vals.shape[0])).reshape(capb, 3 * BANK)
-        parts.append(cur)
-    mr = torch.cat(parts, dim=0)                         # [Btot, 96]
-    if isinstance(inv96, PackedInverse):
-        z96 = packed_symv(inv96, mr)
-    else:
-        z96 = batched_symv(inv96, mr)                    # [Btot, 96]
+    with span("apply.restrict"):
+        parts = [r_sorted.reshape(-1, 3 * BANK)]
+        cur = parts[0]
+        for l in range(levels - 1):
+            nbl = (sizes[l] + BANK - 1) // BANK          # active banks at level l
+            vals = cur[:nbl].reshape(nbl, BANK, 3).sum(dim=1)  # [sizes[l+1], 3] bank sums
+            capb = (offs[l + 2] - offs[l + 1]) // BANK
+            cur = F.pad(vals, (0, 0, 0, capb * BANK - vals.shape[0])).reshape(capb, 3 * BANK)
+            parts.append(cur)
+        mr = torch.cat(parts, dim=0)                     # [Btot, 96]
+    with span("apply.symv"):
+        if isinstance(inv96, PackedInverse):
+            z96 = packed_symv(inv96, mr)
+        else:
+            z96 = batched_symv(inv96, mr)                # [Btot, 96]
     # ---- prolong + additive collect (CollectFinalZ, cpp:1698-1719) ----
-    top = min(levels, cfg.max_applied_levels)
-    pz = z96[offs[top - 1] // BANK: offs[top] // BANK]
-    for l in range(top - 2, -1, -1):
-        curz = z96[offs[l] // BANK: offs[l + 1] // BANK]
-        nb = (offs[l + 1] - offs[l]) // BANK
-        vals = pz.reshape(-1, 3)[:nb]                    # parent z per child bank
-        if l == 0 and cfg.coarse_damping != 1.0:
-            vals = vals * cfg.coarse_damping             # z = z0 + theta*sum z_l
-        pz = curz + vals[:, None, :].expand(nb, BANK, 3).reshape(nb, 3 * BANK)
-    return pz.reshape(-1, 3)[:n]
+    with span("apply.prolong"):
+        top = min(levels, cfg.max_applied_levels)
+        pz = z96[offs[top - 1] // BANK: offs[top] // BANK]
+        for l in range(top - 2, -1, -1):
+            curz = z96[offs[l] // BANK: offs[l + 1] // BANK]
+            nb = (offs[l + 1] - offs[l]) // BANK
+            vals = pz.reshape(-1, 3)[:nb]                # parent z per child bank
+            if l == 0 and cfg.coarse_damping != 1.0:
+                vals = vals * cfg.coarse_damping         # z = z0 + theta*sum z_l
+            pz = curz + vals[:, None, :].expand(nb, BANK, 3).reshape(nb, 3 * BANK)
+        return pz.reshape(-1, 3)[:n]

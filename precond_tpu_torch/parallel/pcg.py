@@ -8,7 +8,8 @@ device) so a distributed caller can insert an all-reduce.
 Host syncs: the convergence test reads ||r||^2 on the host, which syncs
 once per tested iteration (`check_every` spaces the tests out). Everything
 else stays on the device; capturing the loop body in a CUDA graph is later
-work.
+work. Spans (profiling.span): ``pcg.spmv`` and ``pcg.precond`` around each
+operator call, ``pcg.sync`` around the host read of the convergence test.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..profiling import span
 
 
 class PcgResult(NamedTuple):
@@ -49,21 +52,31 @@ def pcg(
         return reduce_sum(torch.sum(u * v))
 
     x = torch.zeros_like(b) if x0 is None else x0.clone()
-    r = b - spmv(x)
-    z = precond(r)
+    with span("pcg.spmv"):
+        ax = spmv(x)
+    r = b - ax
+    with span("pcg.precond"):
+        z = precond(r)
     p = z
     rz = dot(r, z)
     b2 = dot(b, b)
     tol2 = tol * tol * b2
     it = 0
-    # one host sync per convergence test (the while predicate)
-    while it < max_iters and bool(dot(r, r) > tol2):
+    while it < max_iters:
+        live = dot(r, r) > tol2
+        # one host sync per convergence test
+        with span("pcg.sync"):
+            live = bool(live)
+        if not live:
+            break
         for _ in range(max(check_every, 1)):
-            q = spmv(p)
+            with span("pcg.spmv"):
+                q = spmv(p)
             alpha = rz / dot(p, q)
             x = x + alpha * p
             r = r - alpha * q
-            z = precond(r)
+            with span("pcg.precond"):
+                z = precond(r)
             rz_new = dot(r, z)
             p = z + (rz_new / rz) * p
             rz = rz_new

@@ -6,6 +6,19 @@ per-phase milliseconds, nnz/s) with the JAX package's fields, rounding and
 JSON. A phase synchronizes the card around its clock where the JAX package
 blocks on its arrays, and ``device_trace`` writes a torch.profiler Chrome
 trace where the JAX package writes a jax.profiler one.
+
+Spans name the phases of a frame without synchronizing anything: inside
+``tracing()`` each ``span(name)`` is a ``torch.profiler.record_function``
+range, which a running torch.profiler stamps on the clock of the kernels it
+records (and ``torch.autograd.profiler.emit_nvtx()`` turns into an NVTX
+range). Outside ``tracing()`` a span is one flag test. The names are dotted,
+parent first: ``frame`` (``ClothSim.step``) with ``frame.resort``,
+``frame.detect``, ``frame.rhs``, ``frame.refresh``, ``frame.prepare``,
+``frame.pcg`` and ``frame.update``; ``prepare.permute``,
+``prepare.hierarchy``, ``prepare.assembly`` and ``prepare.factor`` in the
+prepares; ``pcg.spmv``, ``pcg.precond`` and ``pcg.sync`` in ``pcg``;
+``apply.restrict``, ``apply.symv`` and ``apply.prolong`` in the applies.
+``counters()`` is a registry of counts the program sets on the host.
 """
 
 from __future__ import annotations
@@ -18,6 +31,61 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+
+
+class _Off:
+    """The span outside ``tracing()``: enters and leaves doing nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_TRACING = False
+_OFF = _Off()
+_COUNTS: Dict[str, float] = {}
+
+
+def span(name: str):
+    """A named range of the program: a ``record_function`` range inside
+    ``tracing()``, a shared no-op context outside it. Never synchronizes."""
+    if not _TRACING:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Turn spans on inside the block (and back to what they were after)."""
+    global _TRACING
+    was, _TRACING = _TRACING, True
+    try:
+        yield
+    finally:
+        _TRACING = was
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add `n` to the counter `name`."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def set_count(name: str, value: float) -> None:
+    _COUNTS[name] = value
+
+
+def counters() -> Dict[str, float]:
+    """A snapshot of every counter.
+
+    ``spmv.ell_slots`` / ``spmv.ell_stored``: the padded slots (N x width)
+    and the stored off-diagonal blocks of the block-ELL system that the
+    general path's SpMV iterates on, set by ``ClothSim`` when it is built.
+    """
+    return dict(_COUNTS)
 
 
 def _sync(obj) -> None:
@@ -36,7 +104,8 @@ def _sync(obj) -> None:
 
 @dataclass
 class PhaseTimer:
-    """Wall-clock per-phase accumulator (device-synchronized)."""
+    """Wall-clock per-phase accumulator (device-synchronized); each phase
+    is also a ``span`` of its name."""
 
     phases: Dict[str, float] = field(default_factory=dict)
     counts: Dict[str, int] = field(default_factory=dict)
@@ -51,7 +120,8 @@ class PhaseTimer:
         t0 = time.perf_counter()
         out = {}
         try:
-            yield out
+            with span(name):
+                yield out
         finally:
             if "sync" in out:
                 _sync(out["sync"])
@@ -110,7 +180,8 @@ class SolveMetrics:
 def device_trace(trace_dir: Optional[str]):
     """torch.profiler trace around a region, written as a Chrome trace
     (``trace.json``) into `trace_dir`; a no-op when `trace_dir` is None.
-    Records CPU activity, and CUDA activity whenever a card is present."""
+    Records CPU activity, and CUDA activity whenever a card is present, with
+    the program's spans on (``tracing()``)."""
     if trace_dir is None:
         yield
         return
@@ -123,7 +194,8 @@ def device_trace(trace_dir: Optional[str]):
     prof = profile(activities=acts)
     prof.start()
     try:
-        yield
+        with tracing():
+            yield
     finally:
         if torch.cuda.is_available():
             torch.cuda.synchronize()

@@ -36,6 +36,7 @@ from .ops.gridassembly import assemble_box_hessian, assemble_grid_hessian
 from .ops.cuda.packed_symv import dense_cm, pack_sym96, pack_sym96_cm
 from .ops.cuda.spd_inverse import spd_inverse
 from .ops.stencils import Stencils, collision_terms, map_stencils, stencil_pairs
+from .profiling import span
 from .utils import aabb, morton
 
 
@@ -83,21 +84,22 @@ def _factorize(h96: torch.Tensor, cfg: SchwarzConfig, n: int, allow_cm: bool = F
             "row-major layout (only >=32x32 2-D grid prepares honor cm); "
             "proceeding row-major"
         )
-    if cfg.inverse_kernel == "xla":
-        inv96 = invert_spd_blocks(h96)
-    else:
-        # "panel": the hand-written kernel on the card, its plain version on
-        # the CPU. Debug mode disables the silent identity
-        # repair so a genuine factorization bug reaches assert_healthy.
-        inv96 = spd_inverse(h96, repair=not _debug_enabled(cfg))
-    cm = allow_cm and cfg.use_cm(n)
-    if cfg.use_packed_symv(n):
-        pack = pack_sym96_cm if cm else pack_sym96
-        return pack(inv96, block_b=cfg.packed_symv_block_b)
-    # dense storage in cfg.inverse_dtype, rounded after the f32 inverse (the
-    # packed forms above are f32 only)
-    inv96 = inv96.to(getattr(torch, cfg.inverse_dtype))
-    return dense_cm(inv96) if cm else inv96
+    with span("prepare.factor"):
+        if cfg.inverse_kernel == "xla":
+            inv96 = invert_spd_blocks(h96)
+        else:
+            # "panel": the hand-written kernel on the card, its plain version
+            # on the CPU. Debug mode disables the silent identity
+            # repair so a genuine factorization bug reaches assert_healthy.
+            inv96 = spd_inverse(h96, repair=not _debug_enabled(cfg))
+        cm = allow_cm and cfg.use_cm(n)
+        if cfg.use_packed_symv(n):
+            pack = pack_sym96_cm if cm else pack_sym96
+            return pack(inv96, block_b=cfg.packed_symv_block_b)
+        # dense storage in cfg.inverse_dtype, rounded after the f32 inverse
+        # (the packed forms above are f32 only)
+        inv96 = inv96.to(getattr(torch, cfg.inverse_dtype))
+        return dense_cm(inv96) if cm else inv96
 
 
 def prepare_with_system(
@@ -116,28 +118,30 @@ def prepare_with_system(
     (ops/contact.py), as in the reference.
     """
     n = ell.num_verts
-    ell_sorted = permute(ell, maps.sorted_to_orig, maps.orig_to_sorted)
-    pairs = terms = None
-    if stencils is not None:
-        mapped = map_stencils(stencils, maps.orig_to_sorted)
-        pairs = stencil_pairs(mapped)
-        terms = collision_terms(mapped)
-    if analytic_hier:
-        # The caller's ordering guarantees single-cluster banks at every
-        # level (the analytic tile order): the hierarchy is arithmetic, so
-        # build_hierarchy is skipped (ops/gridapply.analytic_hierarchy).
-        hier, merge_map = analytic_hierarchy(n, cfg, ell.diag.device), None
-    else:
-        hier, merge_map = hi.build_hierarchy(
-            ell_sorted.idx, ell_sorted.mask, cfg, pairs, with_merge_map=True
-        )
-    h96 = assemble_banked_hessian(ell_sorted, hier, cfg, terms, merge_map=merge_map)
+    with span("prepare.permute"):
+        ell_sorted = permute(ell, maps.sorted_to_orig, maps.orig_to_sorted)
+        mapped = None if stencils is None else map_stencils(stencils, maps.orig_to_sorted)
+    with span("prepare.hierarchy"):
+        if analytic_hier:
+            # The caller's ordering guarantees single-cluster banks at every
+            # level (the analytic tile order): the hierarchy is arithmetic,
+            # so build_hierarchy is skipped (ops/gridapply.analytic_hierarchy).
+            hier, merge_map = analytic_hierarchy(n, cfg, ell.diag.device), None
+        else:
+            pairs = None if mapped is None else stencil_pairs(mapped)
+            hier, merge_map = hi.build_hierarchy(
+                ell_sorted.idx, ell_sorted.mask, cfg, pairs, with_merge_map=True
+            )
+        ancestors = hi.ancestor_node_ids(hier, cfg, n)
+    with span("prepare.assembly"):
+        terms = None if mapped is None else collision_terms(mapped)
+        h96 = assemble_banked_hessian(ell_sorted, hier, cfg, terms, merge_map=merge_map)
     inv96 = _factorize(h96, cfg, n)
     state = ApplyState(
         sorted_to_orig=maps.sorted_to_orig,
         orig_to_sorted=maps.orig_to_sorted,
         going_next=hier.going_next,
-        ancestors=hi.ancestor_node_ids(hier, cfg, n),
+        ancestors=ancestors,
         inv96=inv96,
         overflow=hier.overflow,
         restrict_onehot=hier.onehot,
@@ -177,8 +181,9 @@ def prepare_box(
     (every box bank is one fully-merged cluster, so contact connectivity is
     absorbed); their Hessian terms enter via arithmetic climbs. The box
     path keeps the row-major layout."""
-    terms = _grid_terms(stencils, o2s, diag_rows.shape[0], "box")
-    h96 = assemble_box_hessian(diag_rows, dirs_rows, offsets, dims, cfg, terms)
+    with span("prepare.assembly"):
+        terms = _grid_terms(stencils, o2s, diag_rows.shape[0], "box")
+        h96 = assemble_box_hessian(diag_rows, dirs_rows, offsets, dims, cfg, terms)
     return _factorize(h96, cfg, diag_rows.shape[0])
 
 
@@ -207,8 +212,9 @@ def prepare_grid(
     hierarchy: their Hessian terms are added by arithmetic climbs
     (ops/gridassembly.grid_collision_terms).
     """
-    terms = _grid_terms(stencils, o2s, diag_rows.shape[0], "grid")
-    h96 = assemble_grid_hessian(diag_rows, dirs_rows, offsets, k, cfg, terms)
+    with span("prepare.assembly"):
+        terms = _grid_terms(stencils, o2s, diag_rows.shape[0], "grid")
+        h96 = assemble_grid_hessian(diag_rows, dirs_rows, offsets, k, cfg, terms)
     return _factorize(h96, cfg, diag_rows.shape[0], allow_cm=k >= 5)
 
 
@@ -246,10 +252,14 @@ class SchwarzPreconditioner:
         self.maps: Optional[SortMaps] = None
         self.state: Optional[ApplyState] = None
 
+    def resorts_next(self) -> bool:
+        """Whether the next allocate() re-sorts."""
+        return self.maps is None or self.frame_index % self.cfg.resort_every == 0
+
     def allocate(self, positions) -> None:
         """Per-frame entry; re-sorts space on the configured cadence
         (reference: every 17th frame, cpp:49)."""
-        if self.maps is None or self.frame_index % self.cfg.resort_every == 0:
+        if self.resorts_next():
             pos = torch.as_tensor(positions, dtype=torch.float32, device=self.device)
             self.maps = compute_sort_maps(pos, self.cfg.morton_normalization)
         self.frame_index += 1

@@ -55,10 +55,13 @@ what comes out against references. It prints, in order:
     and capacities equal; iterations in a band; the recomputed residual
     within 1.5x the record's), bitwise repeats, the
     card's sort maps against the CPU's, K1 on the mesh's blocks (the hub's
-    block by itself) and K2 or K3 on its table; on the hub mesh a prepare at
-    level_headroom 0.3 whose overflow retries land on the record's headroom
-    with going_next equal to a CPU prepare's. "[irregular ...]" lines, then
-    the phase's wall beside its 90 s budget;
+    block by itself) and K2 or K3 on its table, the ELL SpMV kernel on its
+    Morton-sorted system (one launch a PCG SpMV; against its plain version
+    and float64, time beside the stored-block bound and cuSPARSE); on the
+    hub mesh a prepare at level_headroom 0.3 whose overflow retries land on
+    the record's headroom with going_next equal to a CPU prepare's.
+    "[irregular ...]" and "[ell_spmv]" lines, then the phase's wall beside
+    its 90 s budget;
   * the graft entry points (graft_entry_torch.py, the twin of
     __graft_entry__.py): entry() on the card and dryrun_multichip(2) on two
     gloo ranks sharing cuda:0, each step within one iteration of the JAX
@@ -1178,9 +1181,11 @@ def run_irregular(name: str, side: int, radius: float, tol: float = 1e-4) -> dic
     require(retries == 0 and isinstance(pre.state.inv96, PackedInverse) == rec["packed"],
             f"{label}: retried {retries} times or the storage is not the record's")
     symv_name = "packed_symv96" if rec["packed"] else "symv96"
-    require(counts["spd_inverse96"] == 1 and counts[symv_name] >= 1,
+    require(counts["spd_inverse96"] == 1 and counts[symv_name] >= 1
+            and counts["ell_spmv"] == res.iterations + 1,
             f"{label}: K1 launched {counts['spd_inverse96']} times, {symv_name} "
-            f"{counts[symv_name]} times")
+            f"{counts[symv_name]} times, ell_spmv {counts['ell_spmv']} times in "
+            f"{res.iterations} iterations")
     prepare_ms = time_ms(lambda: pre.prepare(ell), warmup=0, iters=2)
     apply_ms = time_ms(lambda: pre.apply(b), warmup=2, iters=10)
     spmv_ms = time_ms(lambda: spmv(ell, b), warmup=2, iters=10)
@@ -1238,6 +1243,11 @@ def run_irregular(name: str, side: int, radius: float, tol: float = 1e-4) -> dic
     out = dict(n=n, width=ell.max_degree, counts=counts, iters=res.iterations,
                jacobi_iters=jac.iterations, prepare_ms=prepare_ms, ms_per_iter=ms_per_iter,
                peak_gb=peak_gb)
+    # the SpMV kernel on the ELL in the order the general path's PCG runs it
+    from precond_tpu_torch.ops.blockcsr import permute
+
+    out["ell_spmv"] = ell_spmv_row(
+        permute(ell, pre.maps.sorted_to_orig, pre.maps.orig_to_sorted), f"{label} sorted")
     del pre
     if "retry_headroom" not in rec:
         return out
@@ -3576,6 +3586,124 @@ def kernel_stencil_spmv(run: dict, launches_by_path: dict, path: str, small: dic
                    bound_ms_by_path={path: bound[0], label: bound_small[0]})
 
 
+def ell_bsr(h):
+    """The block-ELL system, its diagonal included, as a 3x3-block BSR matrix
+    over vertex-major DOFs (the library yardstick's operand; the port never
+    uses it)."""
+    import warnings
+
+    import torch
+
+    n, k = h.idx.shape
+    v = torch.arange(n, device=h.idx.device)
+    cols = torch.cat([v[:, None], torch.where(h.mask, h.idx.long(), n)], dim=1)
+    c, order = torch.sort(cols, dim=1)                                   # padded (n) last
+    blocks = torch.take_along_dim(torch.cat([h.diag[:, None], h.blocks], dim=1),
+                                  order[:, :, None, None], dim=1)
+    keep = c < n
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=h.idx.device)
+    crow[1:] = keep.sum(dim=1).cumsum(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # "BSR support is in beta"
+        return torch.sparse_bsr_tensor(crow.to(torch.int32), c[keep].to(torch.int32),
+                                       blocks[keep].contiguous(), size=(3 * n, 3 * n))
+
+
+def ell_spmv_bounds(n: int, k: int, stored: int) -> dict:
+    """The least time of y = H x at this shape: each stored off-diagonal block
+    (36 B) and its column id (4 B), the diagonal (36 B a row), the K mask
+    bytes of a row and x (12 B a row) read once, y (12 B a row) written once;
+    2 flop a block entry. `padded` reads all K slots a row instead."""
+    rows = (36 + 12 + k + 12) * n
+    return dict(stored=bound_ms(40 * stored + rows, 18 * (stored + n)),
+                padded=bound_ms(40 * n * k + rows, 18 * (n * k + n)))
+
+
+def ell_spmv_row(h, label: str, seed: int = 13) -> dict:
+    """The block-ELL SpMV kernel on one system: against its plain version
+    and float64 per row (the f32 summation bounds of
+    tests/test_torch_gpu_kernels.py: (4K + 14) u and (K + 8) u of the row's
+    sum of |terms|), two calls bit for bit, then kernel / plain / library
+    times beside the stored-block bound."""
+    import numpy as np
+    import torch
+    from precond_tpu_torch.ops.blockcsr import spmv_plain
+    from precond_tpu_torch.ops.cuda.ell_spmv import ell_spmv
+
+    n, k = h.idx.shape
+    stored = int(h.mask.sum())
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal((n, 3)).astype(np.float32),
+                        device=DEVICE)
+    got = ell_spmv(h, x)
+    plain = spmv_plain(h, x)
+    b64 = h.blocks.double() * h.mask[:, :, None, None]
+    xd = x.double()
+    xg = xd[h.idx.long()]
+    y64 = torch.einsum("nij,nj->ni", h.diag.double(), xd) + torch.einsum("nkij,nkj->ni", b64, xg)
+    scale = (torch.einsum("nij,nj->ni", h.diag.double().abs(), xd.abs())
+             + torch.einsum("nkij,nkj->ni", b64.abs(), xg.abs()))
+    del b64, xg
+    u = 2.0 ** -24
+    d_plain = (got.double() - plain.double()).abs()
+    d64 = (got.double() - y64).abs()
+    max_abs = float(d_plain.max())
+    worst_plain = float((d_plain / ((4 * k + 14) * u * scale)).max())
+    worst64 = float((d64 / ((k + 8) * u * scale)).max())
+    same = torch.equal(ell_spmv(h, x), got)
+    ok = bool(torch.isfinite(got).all().item()) and worst_plain <= 1 and worst64 <= 1 and same
+    log(f"[ell_spmv] {label} N={n} K={k} stored={stored} ({100 * stored / (n * k):.2f}% of the "
+        f"slots): kernel vs plain max abs {max_abs:.3e} (max|y| {float(y64.abs().max()):.3e}), "
+        f"vs float64 max abs {float(d64.max()):.3e}; worst row / its bound: plain "
+        f"{worst_plain:.3f}, float64 {worst64:.3f}; two calls bitwise {same}; ok={ok}")
+    require(ok, f"ell_spmv disagrees with its plain version or float64: {label}")
+    del plain, y64, scale, d_plain, d64
+
+    ms = time_ms(lambda: ell_spmv(h, x), warmup=5, iters=50)
+    plain_ms = time_ms(lambda: spmv_plain(h, x), warmup=1, iters=5)
+    lib_ms, lib_note = None, ""
+    bsr = ell_bsr(h)
+    xv = x.reshape(-1)
+    for what, call in (("torch.mv(bsr)", lambda: torch.mv(bsr, xv)),
+                       ("bsr @ x[:, None]", lambda: (bsr @ xv[:, None])[:, 0])):
+        try:
+            yl = call()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:   # the yardstick only; says why
+            lib_note += f"{what}: {str(e).splitlines()[0][:160]}; "
+            continue
+        err = float((yl.reshape(n, 3) - got).abs().max())
+        log(f"[ell_spmv] library {what} on a {bsr.values().shape[0]}-block BSR: "
+            f"max abs vs kernel {err:.3e}")
+        lib_ms = time_ms(call, warmup=3, iters=20)
+        lib_note = what
+        break
+    del bsr
+    bounds = ell_spmv_bounds(n, k, stored)
+    sb, pb = bounds["stored"], bounds["padded"]
+    log(f"[ell_spmv] {label}: kernel {ms:.4f} ms ({100 * sb[0] / ms:.1f}% of the stored-block "
+        f"bound {sb[0]:.4f} ms, {sb[1]}; padded-slot bound {pb[0]:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, library "
+        f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'} ({lib_note})")
+    return dict(max_abs=max_abs, ms=ms, plain_ms=plain_ms, bound=sb, padded_bound_ms=pb[0],
+                library_ms=lib_ms, library_call=lib_note, n=n, k=k, stored=stored)
+
+
+def run_ell_spmv_delaunay(side: int = 1024) -> dict:
+    """ell_spmv_row on the Delaunay sheet of the benchmark's general-path
+    cell (scripts/torch_irregular_mesh.py at `side`, no hub) in Morton order,
+    as the PCG sees it; callable by itself on the card."""
+    import torch
+    from precond_tpu_torch.models import cloth
+    from precond_tpu_torch.ops.blockcsr import permute
+    from precond_tpu_torch.solver import compute_sort_maps
+
+    mesh = cloth.ClothMesh(**_script("torch_irregular_mesh").irregular_cloth(side, 0.0))
+    ell = cloth.assemble_system(mesh, device=DEVICE)
+    maps = compute_sort_maps(torch.as_tensor(mesh.positions, device=DEVICE))
+    return ell_spmv_row(permute(ell, maps.sorted_to_orig, maps.orig_to_sorted),
+                        f"irregular {side} sorted")
+
+
 # ---------------------------------------------------------------------------
 # the north star: 2048^2 (BASELINE.json:11)
 # ---------------------------------------------------------------------------
@@ -4025,6 +4153,15 @@ def main(argv=None) -> int:
     del h96
     kernels.append(kernel_symv(cl_dense["inv"].m, by_path("symv96"), f"cloth {args.cloth_dense}"))
     kernels.append(kernel_stencil_spmv(cl, by_path("stencil_spmv"), head, cl_dense))
+    row = irregular["1024"]["ell_spmv"]
+    kernels.append(_record("ell_spmv", "precond_tpu_torch/csrc/ell_spmv.cu",
+                           "none: precond_tpu/ops/blockcsr.py:94 spmv is a gather plus einsum",
+                           by_path("ell_spmv"), "irregular 1024", row["max_abs"], row["ms"],
+                           row["plain_ms"], row["bound"], row["library_ms"],
+                           library_call=row["library_call"],
+                           padded_bound_ms=row["padded_bound_ms"],
+                           ms_by_path={f"irregular {name}": irr["ell_spmv"]["ms"]
+                                       for name, irr in irregular.items()}))
     # K3's bf16 entry on the bf16 tables: cloth's B = 34,952 and general's 2,185
     check_symv_bf16(cb_small["inv"].m, f"cloth {args.cloth_dense} bf16")
     kernels.append(kernel_symv_bf16(cb_big["inv"].m, by_path("symv96_bf16"),

@@ -373,7 +373,7 @@ class ClothSim:
                 mesh.grid[0], mesh.grid[1], mesh.springs, mesh.stiffness)
             self._stencil_ks = t(ks)
         else:
-            # the general path's SpMV walks every slot of the padded ELL
+            # the general path's padded ELL; its SpMV kernel reads the stored slots only
             set_count("spmv.ell_slots", int(ell_mask.size))
             set_count("spmv.ell_stored", int(ell_mask.sum()))
         self._springs_d = t(mesh.springs)

@@ -9,7 +9,9 @@ degree K:
     diag   f32[N, 3, 3]     diagonal blocks
     mask   bool[N, K]       valid-slot mask
 
-SpMV y = H x is one row gather plus two batched contractions.
+SpMV y = H x: on the card the hand-written kernel (ops/cuda/ell_spmv.py),
+which reads only the valid slots; on the CPU its plain version, one row
+gather plus two batched contractions.
 """
 
 from __future__ import annotations
@@ -94,7 +96,16 @@ def scatter_accumulate(size: int, tgt: torch.Tensor, vals: torch.Tensor,
 
 
 def spmv(h: BlockEll, x: torch.Tensor) -> torch.Tensor:
-    """y = H x with x, y of shape [N, 3]."""
+    """y = H x with x, y of shape [N, 3]: the kernel on CUDA tensors
+    (launched or raising), the plain version on CPU tensors."""
+    from .cuda.ell_spmv import ell_spmv
+
+    return ell_spmv(h, x.contiguous())
+
+
+def spmv_plain(h: BlockEll, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ELL SpMV kernel: every slot, padded ones
+    included, through a gather and two einsums."""
     xg = x[h.idx]                                               # [N, K, 3]
     off = torch.einsum("nkij,nkj->ni", h.blocks, xg)            # [N, 3]
     dia = torch.einsum("nij,nj->ni", h.diag, x)                 # [N, 3]

@@ -38,7 +38,7 @@ build_info: dict = {}
 #: kernel launches per wrapper; a wrapper adds one where it launches, and
 #: nowhere else (a run can show that the main path went through a kernel)
 launch_counts = {"spd_inverse96": 0, "packed_symv96": 0, "symv96": 0, "symv96_bf16": 0,
-                 "stencil_spmv": 0}
+                 "stencil_spmv": 0, "ell_spmv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -58,6 +58,8 @@ _SIGNATURES = {
     "symv96_bf16_grid": (_IP, _IP),
     # diag, dirs, x, y, nx, ny, nd, host int[2*nd] offsets, stream
     "stencil_spmv": (_VP, _VP, _VP, _VP, _I, _I, _I, _IP, _VP),
+    # diag, idx, blocks, mask, x, y, n, k, stream
+    "ell_spmv": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP),
     # no launch: K1's shared memory per block and blocks per SM (out int*)
     "spd_inverse96_occupancy": (_IP, _IP),
 }

@@ -107,3 +107,37 @@ def test_k3_on_hub_dense_table(hub):
     plain = apply_block_inverse(inv96, rhs)
     scale = float(plain.abs().max())
     assert bool(((got - plain).abs() <= 1e-5 * plain.abs() + 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("order", ["original", "sorted"])
+def test_ell_spmv_on_hub_mesh(hub, order):
+    """The block-ELL SpMV kernel on the hub mesh's own ELL (width ~215, one
+    row of ~125 valid slots), in both vertex orders, against its plain
+    version and float64 on the CPU. Per row, within (4K + 14) u and (K + 8) u
+    of the row's sum of |terms| (tests/test_torch_gpu_kernels.py's bounds of
+    f32 summation, u = 2^-24)."""
+    from precond_tpu_torch.ops.blockcsr import spmv, spmv_plain
+
+    ell = hub["ell"]
+    if order == "sorted":
+        maps = hub["dense"].maps
+        ell = permute(ell, maps.sorted_to_orig, maps.orig_to_sorted)
+    k = ell.max_degree
+    x = torch.as_tensor(
+        np.random.default_rng(4).standard_normal((ell.num_verts, 3)).astype(np.float32),
+        device="cuda")
+    before = _lib.launch_counts["ell_spmv"]
+    got = spmv(ell, x)
+    assert _lib.launch_counts["ell_spmv"] == before + 1
+    plain = spmv_plain(ell, x).cpu().double()
+    diag, idx, blocks, mask = (t.cpu() for t in ell)
+    xd = x.cpu().double()
+    b = blocks.double() * mask[:, :, None, None]
+    xg = xd[idx.long()]
+    y64 = torch.einsum("nij,nj->ni", diag.double(), xd) + torch.einsum("nkij,nkj->ni", b, xg)
+    scale = (torch.einsum("nij,nj->ni", diag.double().abs(), xd.abs())
+             + torch.einsum("nkij,nkj->ni", b.abs(), xg.abs()))
+    got = got.cpu().double()
+    u = 2.0 ** -24
+    assert bool(((got - plain).abs() <= (4 * k + 14) * u * scale).all())
+    assert bool(((got - y64).abs() <= (k + 8) * u * scale).all())

@@ -447,3 +447,163 @@ def test_grid_path_on_card_matches_cpu(cuda, symv, layout):
         z[dev] = z[dev].cpu().numpy()
     scale = np.abs(z["cpu"]).max()
     np.testing.assert_allclose(z["cuda"], z["cpu"], rtol=1e-5, atol=1e-6 * scale)
+
+
+# ---- the general path's block-ELL SpMV (csrc/ell_spmv.cu) -------------------
+#
+# Tolerances are worst-case bounds of f32 summation, per row, against the
+# row's sum of |terms| (|diag| |x| plus |block| |x[idx]| over the valid slots,
+# in float64): u = 2^-24, and a sum of m products rounds within ~m u of it.
+# The kernel sums at most K/3 + 1 products a lane and then four adds, so it
+# lies within (K + 8) u of float64. The plain version's einsum sums 3K
+# products a row, so kernel and plain lie within (4K + 14) u of each other.
+# Both bounds hold whatever the summation order; a missed or doubled slot
+# breaks them by a whole term.
+
+U32 = 2.0 ** -24
+
+
+def _random_ell(n, k, seed, fill=0.3):
+    """A well-formed BlockEll on the host: scattered (non-prefix) valid
+    slots, every 7th row empty, every 11th full; padded slots hold a zero
+    block and their own row's id. Returns (ell, x) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((n, k)) < fill
+    mask[::7] = False
+    mask[3::11] = True
+    own = np.broadcast_to(np.arange(n, dtype=np.int32)[:, None], (n, k))
+    idx = np.where(mask, rng.integers(0, n, (n, k), dtype=np.int32), own)
+    blocks = rng.standard_normal((n, k, 3, 3), dtype=np.float32)
+    blocks *= mask[:, :, None, None]
+    diag = rng.standard_normal((n, 3, 3), dtype=np.float32)
+    x = rng.standard_normal((n, 3), dtype=np.float32)
+    return (diag, idx, blocks, mask), x
+
+
+def _to(arrays, dev):
+    from precond_tpu_torch.ops.blockcsr import BlockEll
+
+    return BlockEll(*(torch.as_tensor(a, device=dev) for a in arrays))
+
+
+def _f64_and_scale(arrays, x):
+    """y in float64 on the CPU and each row's sum of |terms|."""
+    diag, idx, blocks, mask = (torch.as_tensor(a) for a in arrays)
+    xd = torch.as_tensor(x).double()
+    b = blocks.double() * mask[:, :, None, None]
+    xg = xd[idx.long()]
+    y = torch.einsum("nij,nj->ni", diag.double(), xd) + torch.einsum("nkij,nkj->ni", b, xg)
+    s = (torch.einsum("nij,nj->ni", diag.double().abs(), xd.abs())
+         + torch.einsum("nkij,nkj->ni", b.abs(), xg.abs()))
+    return y, s
+
+
+@pytest.mark.parametrize("k", [1, 7, 41, 215])
+@pytest.mark.parametrize("n", [1, 1000, 2 ** 16 + 3])
+def test_ell_spmv_kernel_matches_plain(cuda, n, k):
+    from precond_tpu_torch.ops.blockcsr import spmv, spmv_plain
+
+    arrays, x = _random_ell(n, k, seed=n + k)
+    h = _to(arrays, cuda)
+    xd = torch.as_tensor(x, device=cuda)
+    before = _lib.launch_counts["ell_spmv"]
+    got = spmv(h, xd)
+    assert _lib.launch_counts["ell_spmv"] == before + 1
+    plain = spmv_plain(h, xd)
+    torch.cuda.synchronize()
+    y64, scale = _f64_and_scale(arrays, x)
+    got_c = got.cpu().double()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got_c - plain.cpu().double()).abs() <= (4 * k + 14) * U32 * scale).all())
+    assert bool(((got_c - y64).abs() <= (k + 8) * U32 * scale).all())
+
+
+@pytest.mark.parametrize("n,k", [(1000, 7), (2 ** 16 + 3, 41), (3000, 215)])
+def test_ell_spmv_kernel_never_reads_masked_slots(cuda, n, k):
+    """NaN blocks and other rows' ids in the masked slots: y is bit for bit
+    the y of the same system with clean padding, and finite."""
+    from precond_tpu_torch.ops.cuda.ell_spmv import ell_spmv
+
+    arrays, x = _random_ell(n, k, seed=7 * n + k)
+    diag, idx, blocks, mask = arrays
+    rng = np.random.default_rng(k)
+    dirty_blocks = np.where(mask[:, :, None, None], blocks, np.float32(np.nan))
+    dirty_idx = np.where(mask, idx, rng.integers(0, n, (n, k), dtype=np.int32))
+    xd = torch.as_tensor(x, device=cuda)
+    clean = ell_spmv(_to(arrays, cuda), xd)
+    dirty = ell_spmv(_to((diag, dirty_idx, dirty_blocks, mask), cuda), xd)
+    assert bool(torch.isfinite(dirty).all())
+    assert torch.equal(dirty, clean)
+
+
+def test_ell_spmv_kernel_bitwise_repeatable(cuda):
+    from precond_tpu_torch.ops.cuda.ell_spmv import ell_spmv
+
+    arrays, x = _random_ell(2 ** 16 + 3, 41, seed=11)
+    h = _to(arrays, cuda)
+    xd = torch.as_tensor(x, device=cuda)
+    assert torch.equal(ell_spmv(h, xd), ell_spmv(h, xd))
+
+
+def test_ell_spmv_rejects_bad_operands(cuda):
+    from precond_tpu_torch.ops.cuda.ell_spmv import ell_spmv
+
+    arrays, x = _random_ell(100, 7, seed=12)
+    h = _to(arrays, cuda)
+    xd = torch.as_tensor(x, device=cuda)
+    before = dict(_lib.launch_counts)
+    bad = [
+        ("float32", h._replace(blocks=h.blocks.double()), xd),
+        ("float32", h, xd.double()),
+        ("int32", h._replace(idx=h.idx.long()), xd),
+        ("bool", h._replace(mask=h.mask.to(torch.uint8)), xd),
+        ("CUDA tensor", h, xd.cpu()),
+        ("CUDA tensor", h._replace(diag=h.diag.cpu()), xd),
+        ("shape", h, xd[:99]),
+        ("shape", h, torch.zeros((100, 4), device=cuda)),
+        ("shape", h._replace(mask=h.mask[:, :6]), xd),
+        ("contiguous", h._replace(blocks=h.blocks.transpose(2, 3)), xd),
+        ("contiguous", h, xd.T.contiguous().T),
+    ]
+    for what, hh, xx in bad:
+        with pytest.raises(ValueError, match=what):
+            ell_spmv(hh, xx)
+    assert _lib.launch_counts == before
+
+
+def _clothsim_frames(mesh, frames, cuda):
+    from precond_tpu_torch import SchwarzConfig
+    from precond_tpu_torch.models.simulator import ClothSim
+
+    g = mesh.grid[1]
+    sim = ClothSim(mesh, SchwarzConfig(), pinned=np.arange(g), device=cuda)
+    before = dict(_lib.launch_counts)
+    spmv_calls = 0
+    for _ in range(frames):
+        sim.step()
+        assert float(sim.last_solve.rel_residual) <= 1e-4
+        spmv_calls += sim.last_solve.iterations + 1   # the PCG's r0 = b - H x0, then one an iteration
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(sim.state.positions).all())
+    return {k: _lib.launch_counts[k] - before[k] for k in before}, spmv_calls
+
+
+def test_clothsim_general_path_launches_ell_spmv_per_pcg_spmv(cuda):
+    """A 12x12 sheet takes the general path (12 is no power of two): one
+    ell_spmv launch per PCG SpMV call, no K4."""
+    from precond_tpu_torch.models import cloth
+
+    mesh = cloth.make_grid(12, 12, mass=0.05, dt=1.0 / 60.0, k_struct=3e3, k_shear=3e3,
+                           k_bend=30.0)
+    launched, spmv_calls = _clothsim_frames(mesh, 3, cuda)
+    assert launched["ell_spmv"] == spmv_calls and launched["stencil_spmv"] == 0
+
+
+def test_clothsim_grid_path_launches_no_ell_spmv(cuda):
+    """A 32x32 sheet takes the grid path: K4 SpMVs, no ell_spmv launch."""
+    from precond_tpu_torch.models import cloth
+
+    mesh = cloth.make_grid(32, 32, mass=0.02, dt=1.0 / 60.0, k_struct=5e3, k_shear=5e3,
+                           k_bend=50.0)
+    launched, spmv_calls = _clothsim_frames(mesh, 1, cuda)
+    assert launched["ell_spmv"] == 0 and launched["stencil_spmv"] == spmv_calls

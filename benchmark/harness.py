@@ -30,7 +30,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from . import check, devtrace, reference, roofline, scene as scene_mod
+from . import check, devtrace, reference, roofline, scene as scene_mod, spans as spans_mod
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "precond_tpu")
 
@@ -95,25 +95,41 @@ def make_sim(mesh: dict, config: dict, scene, device, **schwarz_overrides):
     from precond_tpu_torch.models.simulator import ClothSim
 
     grid = tuple(int(g) for g in mesh["grid"]) or None
-    cm = ClothMesh(positions=mesh["positions"], edges=mesh["edges"], faces=mesh["faces"],
+    cm = ClothMesh(positions=scene.rest, edges=mesh["edges"], faces=mesh["faces"],
                    springs=mesh["springs"], stiffness=mesh["stiffness"], mass=mesh["mass"],
                    dt=mesh["dt"], grid=grid)
+    contact = {}
+    c = scene.contact
+    if c is not None:
+        contact = dict(collision_stiffness=c.stiffness, collision_threshold=c.threshold,
+                       collision_budget=c.budget, collision_cell_cap=c.cell_cap,
+                       collision_rest_gap=c.rest_gap)
+        schwarz_overrides = {"max_collision_per_vert": c.per_primitive_cap, **schwarz_overrides}
     cfg = SchwarzConfig(**{**config["schwarz"], **schwarz_overrides})
     return ClothSim(cm, cfg, gravity=scene.gravity, pinned=scene.pinned, tol=scene.tol,
-                    max_iters=scene.max_iters, device=device)
+                    max_iters=scene.max_iters, device=device, **contact)
 
 
 class Tap:
-    """Wraps the simulator module's PCG entry. While armed it keeps the
-    residual the first preconditioner call gets and that call's answer;
-    otherwise it passes the call straight through."""
+    """Wraps the simulator module's PCG entry and its stencil builder. While
+    armed it keeps the residual the first preconditioner call gets and that
+    call's answer, and the live stencils of each contact set (EF, EE, VF)
+    as counts on the device; otherwise it passes each call straight
+    through."""
 
     def __init__(self):
         from precond_tpu_torch.models import simulator
 
-        self.module, self.real = simulator, simulator.pcg
-        self.armed, self.got = False, None
-        simulator.pcg = self.pcg
+        self.module, self.real, self.real_build = simulator, simulator.pcg, simulator.build_stencils
+        self.armed, self.got, self.live = False, None, None
+        simulator.pcg, simulator.build_stencils = self.pcg, self.build_stencils
+
+    def build_stencils(self, edges, faces, ef=None, ee=None, vf=None):
+        st = self.real_build(edges, faces, ef=ef, ee=ee, vf=vf)
+        if self.armed:
+            sizes = [0 if s is None else s.stiff.shape[0] for s in (ef, ee, vf)]
+            self.live = torch.stack([p.sum() for p in torch.split(st.valid, sizes)])
+        return st
 
     def pcg(self, spmv, precond, b, *args, **kw):
         if not self.armed:
@@ -131,7 +147,7 @@ class Tap:
         return res
 
     def close(self):
-        self.module.pcg = self.real
+        self.module.pcg, self.module.build_stencils = self.real, self.real_build
 
 
 def _sync(device):
@@ -158,7 +174,8 @@ class _Stretch:
     device sync at each end. host=False traces the card alone (kernels,
     copies, fills), so the host runs at its own pace; host=True adds the
     host's operators, which the idle-gap labels need, inside the
-    devtrace.WINDOW annotation."""
+    devtrace.WINDOW annotation, and turns the program's spans on
+    (profiling.tracing()), which spans.py reduces."""
 
     def __init__(self, frames, path, host, device):
         self.frames, self.path, self.host, self.device = frames, path, host, device
@@ -173,6 +190,12 @@ class _Stretch:
             acts.append(torch.profiler.ProfilerActivity.CPU)
         self.prof = torch.profiler.profile(activities=acts)
         self.prof.start()
+        self.spans = None
+        if self.host:
+            from precond_tpu_torch import profiling
+
+            self.spans = profiling.tracing()
+            self.spans.__enter__()
         self.rf = torch.profiler.record_function(devtrace.WINDOW)
         self.rf.__enter__()
         self.t0 = time.perf_counter()
@@ -185,6 +208,8 @@ class _Stretch:
             _sync(self.device)
             self.wall_s = time.perf_counter() - self.t0
             self.rf.__exit__(None, None, None)
+            if self.spans is not None:
+                self.spans.__exit__(None, None, None)
             self.prof.stop()
             self.prof.export_chrome_trace(self.path)
             self.prof = self.rf = None
@@ -193,7 +218,11 @@ class _Stretch:
 def window(sim, scene, device, seconds: float, trace_dir=None, t_setup0=None):
     """Warm up, then replay episodes for `seconds`. Returns a namespace with
     the per-frame walls, iterations, failures, the checked frames and, with
-    `trace_dir`, the traced stretches."""
+    `trace_dir`, the traced stretches. A frame fails where its PCG ended
+    above tol or its state is not finite (`unconverged_flags`), or where
+    its contact detection found a grid cell over its cap or dropped hits
+    over its budget (`overflow_flags`); the flags of all frames are read
+    once, after the last."""
     tap = Tap()
     reset = episode_runner(sim, scene, device)
     try:
@@ -210,7 +239,7 @@ def window(sim, scene, device, seconds: float, trace_dir=None, t_setup0=None):
         out.warm_s = t0 - t_warm
         out.setup_s = None if t_setup0 is None else t0 - t_setup0
         deadline = t0 + seconds
-        rels, finite, tol = [], [], scene.tol
+        rels, finite, overflow, tol = [], [], [], scene.tol
         episode, f, prev, closed = 0, 0, None, False
         stretches = []
         if trace_dir is not None:
@@ -238,7 +267,7 @@ def window(sim, scene, device, seconds: float, trace_dir=None, t_setup0=None):
                 st.before(episode, f)
             checked = episode == 0 and f in scene.checked
             x_in = sim.state.positions
-            tap.armed, tap.got = checked, None
+            tap.armed, tap.got, tap.live = checked, None, None
             sim.step()
             tap.armed = False
             if not closed:
@@ -248,19 +277,25 @@ def window(sim, scene, device, seconds: float, trace_dir=None, t_setup0=None):
                 t_prev = t
             rels.append(sim.last_solve.rel_residual.reshape(()))
             finite.append(torch.isfinite(sim.state.positions).all())
+            info = sim.last_detect_info
+            if info is not None:
+                overflow.append(info.truncated | (info.dropped > 0))
             if checked:
                 if tap.got is None:
                     raise RuntimeError("the checked frame did not reach the simulator's pcg: "
                                        "the benchmark cannot observe its preconditioner")
                 r0, z0 = tap.got
                 out.frames[f] = check.Frame(x_prev=prev, x_in=x_in, x_out=sim.state.positions,
-                                            r0=r0, z0=z0, x=sim.last_solve.x)
+                                            r0=r0, z0=z0, x=sim.last_solve.x, live=tap.live)
             for st in stretches:
                 st.after(episode, f)
             prev = x_in
             f += 1
         bad = (torch.stack(rels) > tol) | ~torch.stack(finite)
-        out.failed_flags = bad.cpu().tolist()
+        out.unconverged_flags = bad.cpu().tolist()
+        out.overflow_flags = (torch.stack(overflow).cpu().tolist() if overflow
+                              else [False] * len(rels))
+        out.failed_flags = [a or b for a, b in zip(out.unconverged_flags, out.overflow_flags)]
         return out
     finally:
         tap.close()
@@ -293,13 +328,13 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, device
     w = window(sim, scene, device, seconds, trace_dir, t_setup0)
     attempted = len(w.walls)
     failed = sum(w.failed_flags[:attempted])
-    unconverged = sum(w.failed_flags)
 
     del sim
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    numbers, hier = check.judge(w.frames, mesh, scene, cell.config, unconverged, device)
+    numbers, hier, notes = check.judge(w.frames, mesh, scene, cell.config,
+                                       sum(w.unconverged_flags), device, sum(w.overflow_flags))
     correct = check.verdict(numbers, cell.limits)
 
     n = len(mesh["positions"])
@@ -336,7 +371,9 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, device
     else:
         dev_st, host_st = w.stretches
         tr = devtrace.reduce(dev_st.path, dev_st.wall_s, dev_st.count) if on_card else None
-        ctx = SimpleNamespace(iters=w.iters, trace=tr, problem=problem, roofline=roofline)
+        spans = spans_mod.reduce(host_st.path) if on_card else None
+        ctx = SimpleNamespace(iters=w.iters, trace=tr, spans=spans, problem=problem,
+                              roofline=roofline)
         for m in cell.per_layer:
             if not on_card and m["source"] != "program_counter":
                 continue
@@ -365,5 +402,6 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool, device
              f"nnz_spmv={problem['nnz_spmv']} nnz_apply={problem['nnz_apply']} "
              f"frames={attempted} checked={sorted(w.frames)} iters_mean="
              f"{statistics.fmean(w.iters) if w.iters else float('nan')}"]
+    lines += notes
     lines += [f"check {k} {v} limit {cell.limits[k]}" for k, v in numbers.items()]
     return result, lines

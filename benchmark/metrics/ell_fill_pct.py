@@ -1,8 +1,9 @@
 """ell_fill_pct: the share of the padded block-ELL slots that hold a stored
-off-diagonal block, in the system the general path's SpMV walks every slot
-of (the program's counters `spmv.ell_stored` / `spmv.ell_slots`, set on the
-host when the simulator is built). None where the program keeps no such
-counters."""
+off-diagonal block, in the system the general path's SpMV iterates on (the
+program's counters `spmv.ell_stored` / `spmv.ell_slots`, set on the host
+when the simulator is built). The SpMV kernel reads only the stored slots,
+so this is the share of the padded layout it reads, not of its work. None
+where the program keeps no such counters."""
 
 
 def read(ctx):

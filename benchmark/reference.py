@@ -8,7 +8,11 @@ works out again what the program derives:
   * the implicit-Euler system H = (m/dt^2) I + sum_s k_s d_s d_s^T (Gauss-
     Newton spring blocks), pinned vertices decoupled (their rows and
     columns dropped, the mass block kept on their diagonal);
-  * the right-hand side b = (m/dt) v + m g + f_springs, zero on pinned rows;
+  * the right-hand side b = (m/dt) v + m g + f_springs (+ f_contact),
+    zero on pinned rows, the springs' rest lengths from the rest positions
+    the simulator was built with;
+  * with contact (contact.py), the contact Hessian with pinned vertices'
+    weights zeroed in H and, through D_l below, in every level's banks;
   * the preconditioner M^-1 = sum_l c_l R_l^T D_l^-1 R_l over levels
     l < min(L, max_applied_levels): R_l sums vertices into their level-l
     node, D_l is the Galerkin matrix R_l H R_l^T kept on the diagonal
@@ -27,6 +31,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import contact as contact_mod
 
 BANK = 32
 F64 = torch.float64
@@ -130,6 +136,8 @@ class System(NamedTuple):
     coupled: torch.Tensor  # bool[S]: neither end pinned
     k_blocks: torch.Tensor  # f64[S,3,3]
     diag: torch.Tensor     # f64[N,3,3]
+    contact: object = None  # contact.Stencils with pinned weights zeroed, or None
+    stiffness: float = 0.0  # of the contacts
 
 
 def spring_blocks(x: torch.Tensor, a, b, k) -> torch.Tensor:
@@ -138,7 +146,8 @@ def spring_blocks(x: torch.Tensor, a, b, k) -> torch.Tensor:
     return k[:, None, None] * dn[:, :, None] * dn[:, None, :]
 
 
-def system(x32: torch.Tensor, mesh: dict, pinned: torch.Tensor, device) -> System:
+def system(x32: torch.Tensor, mesh: dict, pinned: torch.Tensor, device, contact=None,
+           stiffness: float = 0.0) -> System:
     x = x32.to(device, F64)
     springs = torch.as_tensor(mesh["springs"], device=device).long()
     a, b = springs[:, 0], springs[:, 1]
@@ -151,7 +160,9 @@ def system(x32: torch.Tensor, mesh: dict, pinned: torch.Tensor, device) -> Syste
     diag.index_add_(0, b, kb)
     diag[pinned] = 0.0
     diag += m_dt2 * torch.eye(3, dtype=F64, device=device)
-    return System(a, b, ~(pinned[a] | pinned[b]), kb, diag)
+    if contact is not None:
+        contact = contact_mod.eliminate(contact, pinned)
+    return System(a, b, ~(pinned[a] | pinned[b]), kb, diag, contact, stiffness)
 
 
 def matvec(s: System, v: torch.Tensor) -> torch.Tensor:
@@ -160,14 +171,18 @@ def matvec(s: System, v: torch.Tensor) -> torch.Tensor:
     kb = s.k_blocks * s.coupled[:, None, None]
     y.index_add_(0, s.a, -torch.einsum("sij,sj->si", kb, v[s.b]))
     y.index_add_(0, s.b, -torch.einsum("sij,sj->si", kb, v[s.a]))
+    if s.contact is not None:
+        y += contact_mod.matvec(s.contact, s.stiffness, v)
     return y
 
 
 def rhs(x32: torch.Tensor, v: torch.Tensor, mesh: dict, pinned: torch.Tensor,
-        gravity, device) -> torch.Tensor:
-    """(m/dt) v + m g + spring forces, zero on pinned rows. f64[N,3]."""
+        gravity, device, rest=None, forces=None) -> torch.Tensor:
+    """(m/dt) v + m g + spring forces (+ `forces`), zero on pinned rows.
+    f64[N,3]. The springs' rest lengths come from `rest` (the mesh's own
+    positions by default)."""
     x = x32.to(device, F64)
-    rest = torch.as_tensor(mesh["positions"], device=device).to(F64)
+    rest = torch.as_tensor(mesh["positions"] if rest is None else rest, device=device).to(F64)
     springs = torch.as_tensor(mesh["springs"], device=device).long()
     a, b = springs[:, 0], springs[:, 1]
     k = torch.as_tensor(mesh["stiffness"], device=device).to(F64)
@@ -180,6 +195,8 @@ def rhs(x32: torch.Tensor, v: torch.Tensor, mesh: dict, pinned: torch.Tensor,
     out.index_add_(0, b, -f)
     m, dt = float(mesh["mass"]), float(mesh["dt"])
     out += (m / dt) * v.to(device, F64) + m * torch.as_tensor(gravity, dtype=F64, device=device)
+    if forces is not None:
+        out += forces
     out[pinned] = 0.0
     return out
 
@@ -207,6 +224,11 @@ def _bank_solver(s: System, node: torch.Tensor, size: int):
     neg = -s.k_blocks[same]
     place(pa[same], pb[same], neg)
     place(pb[same], pa[same], neg)
+    if s.contact is not None:
+        for p, q, mat in contact_mod.blocks(s.contact, s.stiffness):
+            np_, nq = node[p], node[q]
+            same = np_ // BANK == nq // BANK
+            place(np_[same], nq[same], mat[same])
     d = flat.reshape(banks, 96, 96)
     empty = torch.arange(banks * BANK, device=dev) >= size
     lanes = torch.nonzero(empty).reshape(-1)

@@ -98,7 +98,8 @@ def _fault_run(checkout, monkeypatch, fault):
             "bm_calibrate", os.path.join(bm.REPO, "benchmark", "calibrate.py"))
         calibrate = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(calibrate)
-        monkeypatch.setattr(simulator, "pcg", calibrate.FAULTS[NEAR_FAULTS[fault]](simulator.pcg))
+        name, wrap, _ = calibrate.FAULTS[NEAR_FAULTS[fault]]
+        monkeypatch.setattr(simulator, name, wrap(getattr(simulator, name)))
     return bm.run_cpu(checkout, TINY_CELLS[0])
 
 
@@ -171,6 +172,7 @@ def test_a_run_loads_no_jax(checkout):
     assert not found & FORBIDDEN
 
 
-def test_reference_imports_nothing_of_the_program(checkout):
-    found = _top_level_modules(checkout, "reference")
+@pytest.mark.parametrize("module", ["reference", "contact"])
+def test_reference_imports_nothing_of_the_program(checkout, module):
+    found = _top_level_modules(checkout, module)
     assert not found & (FORBIDDEN | {"precond_tpu_torch"})
